@@ -16,6 +16,16 @@ Phases, each printing one line (any failure raises and exits non-zero):
    8-cell air; gates: > 90% of channels locked, crc_ok > 3 x crc_fail after
    warm-up, the cells' MCC/MNC decoded, and every kernel launched.
 
+Each kernel row carries its bound on the card (bound_ms: the larger of its
+bytes over the HBM rate and its operations over the FP32 rate, from this
+run's shapes; bound_by says which), its launches per superblock on the
+slice, and library_ms: the time of PyTorch library calls computing the same
+function where they exist, else null.  For K4 two such yardsticks are
+timed, each a fold then one torch.fft.fft and the flip: the fold as an
+einsum over a strided view of the input, and as dilated depthwise conv1d
+with cuDNN's algorithm chosen by timing; library_ms is the faster, and
+the row keeps both with their spread (the port never calls them).
+
 The line before the last is a JSON object of per-kernel results; the last
 line is {"ok": true, "device": {...}}.  Needs a CUDA device and exits
 non-zero without one.
@@ -71,6 +81,12 @@ K2_LEAK_EPS = 1e-5
 K2_LEAK_LOOKBACK = 3
 TOL_FRONT_REL = 1e-4      # K3/K4 max error over the output's RMS
 
+# H100 SXM published peaks (NVIDIA data sheet) for the bounds: HBM3 rate,
+# and FP32 outside the tensor cores (no kernel here uses them)
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+F32 = 4
+
 REPLACES = {
     "K1 agc_fll_rrc": "tetra_tpu/ops/demod_pallas.py:328",
     "K2 mm_costas": "tetra_tpu/ops/mm_pallas.py:628",
@@ -98,20 +114,31 @@ def nvcc_version() -> str:
     return res.stdout.strip().splitlines()[-1]
 
 
-def median_ms(fn, reps: int) -> float:
-    """Median device time of fn() over reps calls (CUDA events, warm)."""
+def batch_ms(fn, launches: int, batches: int) -> list[float]:
+    """Device time per call of fn, one value per batch: CUDA events around
+    `launches` calls in a row (the card stays busy, so the host's own time
+    between calls is hidden), after 0.3 s of calls that bring the card's
+    clocks up (it idles at a few hundred MHz)."""
+    t0 = time.perf_counter()
     fn()
+    while time.perf_counter() - t0 < 0.3:
+        fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(reps):
+    for _ in range(batches):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(launches):
+            fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
-    return float(np.median(times))
+        times.append(a.elapsed_time(b) / launches)
+    return times
+
+
+def median_ms(fn, launches: int, batches: int = 5) -> float:
+    return float(np.median(batch_ms(fn, launches, batches)))
 
 
 def maxerr(a, b) -> float:
@@ -121,6 +148,114 @@ def maxerr(a, b) -> float:
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
+
+
+def bound(n_bytes: float, n_ops: float) -> dict:
+    """The least time the card could take: bytes (each input read once,
+    each output written once) over the HBM rate, or operations over the
+    FP32 rate, whichever is larger."""
+    tb, to = n_bytes / HBM_BYTES_PER_S, n_ops / FP32_OPS_PER_S
+    return dict(bound_ms=max(tb, to) * 1e3,
+                bound_by="bytes" if tb >= to else "operations",
+                bytes=int(n_bytes), ops=int(n_ops))
+
+
+def k1_work(T: int, C: int, Kd: int) -> dict:
+    """K1 per (sample, channel): gain 2, |y| and its sum 5, rotator ramp
+    24, derotation 6, RRC 2 x 65 FMAs (4 x 65 ops), band edge on Kd of
+    every 64 samples 8 x 65 FMAs."""
+    ntap = DK.HIST + 1
+    per = 2 + 5 + 24 + 6 + 4 * ntap + (Kd / DF.K_SAMP) * 16 * ntap
+    n_bytes = F32 * (4 * T * C + 4 * DK.HIST * C + 6 * C + 5 * ntap) + 4 * Kd
+    return bound(n_bytes, per * T * C)
+
+
+def k2_work(T: int, C: int, S: int, emit_syms: bool) -> dict:
+    """K2 per symbol slot: 8 taps x 2 degree-5 Horner (160), the 8-tap
+    value and derivative dots (64), timing error 4, rotator ramp 24,
+    derotation 6, Costas error 4, |sin| dist 9."""
+    per = 160 + 64 + 4 + 24 + 6 + 4 + 9
+    outs = (5 if emit_syms else 3) * S * C
+    n_bytes = F32 * (2 * T * C + 2 * 7 * C + 16 * C + outs + 96)
+    return bound(n_bytes, per * S * C)
+
+
+def k4_work(rows: int, n_ch: int, n_s: int) -> dict:
+    """K4's function at its least work, per 50 kHz frame: the fold, n_ch
+    branches x n_s/2 taps x 2 (re, im) FMAs; a length-n_ch complex FFT,
+    5 n_ch log2(n_ch) operations (the kernel's n_ch^2 matrix DFT is more
+    work than the function needs); the flip 2 n_ch.  Bytes: z and the fold
+    weights in, the frames out."""
+    n_out = rows - (n_s - 1)
+    hop = n_ch // 2
+    fft = 5 * n_ch * int(np.log2(n_ch))
+    ops = n_out * (n_ch * (n_s // 2) * 4 + fft + 2 * n_ch)
+    n_bytes = F32 * (2 * rows * hop + n_s * hop + 2 * n_out * n_ch)
+    return bound(n_bytes, ops)
+
+
+def k3_work(rows: int, n_ch: int, n_s: int, t36: int) -> dict:
+    """K3 = K4, then the 24-tap 18/25 resample (2 x 24 FMAs per output);
+    its bytes: z, fold weights, resample taps and offsets, and history in,
+    the 36 kHz rows and history out (the 50 kHz rows between the two
+    kernels are neither)."""
+    k4 = k4_work(rows, n_ch, n_s)
+    ntap = CH.RS_TAPS_PER_PHASE
+    ops = k4["ops"] + t36 * n_ch * 2 * 2 * ntap
+    n_bytes = F32 * (2 * rows * (n_ch // 2) + n_s * (n_ch // 2)
+                     + 18 * ntap + 18 + 4 * (ntap - 1) * n_ch
+                     + 2 * t36 * n_ch)
+    return bound(n_bytes, ops)
+
+
+def _fft_flip(fr, fi, n_ch: int):
+    """K4's DFT and flip after a fold: one torch.fft.fft over the channel
+    axis, then (-1)^(m k)."""
+    y = torch.fft.fft(torch.complex(fr, fi), dim=-1)
+    m = torch.arange(fr.shape[0], device=fr.device)
+    k = torch.arange(n_ch, device=fr.device)
+    flip = 1.0 - 2.0 * ((m[:, None] * k[None, :]) % 2)
+    return y.real * flip, y.imag * flip
+
+
+def k4_library_einsum(zr, zi, n_ch: int):
+    """K4's function by PyTorch library calls, a yardstick only: the fold
+    of each branch half d as one einsum over the strided view
+    z.unfold(0, n_s, 1)[..., d::2] (frame m, column c, tap j reads row
+    m + 2j + d), then torch.fft.fft and the flip."""
+    F = CK._tables(n_ch, zr.device)[0]                   # (n_s, hop)
+    n_s = F.shape[0]
+
+    def fold(z):
+        win = z.unfold(0, n_s, 1)                         # (n_out, hop, n_s)
+        return torch.cat([torch.einsum("mcj,jc->mc", win[..., d::2],
+                                       F[d::2]) for d in (0, 1)], dim=1)
+
+    return _fft_flip(fold(zr), fold(zi), n_ch)
+
+
+def k4_library_conv(zr, zi, n_ch: int):
+    """The same yardstick with the fold as two dilated depthwise conv1d
+    per component (branch halves d = 0, 1); cuDNN's algorithm is chosen by
+    timing (benchmark mode), not by its heuristics."""
+    F = CK._tables(n_ch, zr.device)[0]
+    n_s, hop = F.shape
+    n_out = zr.shape[0] - (n_s - 1)
+
+    def fold(z):
+        x = z.T[None]                                     # (1, hop, rows)
+        halves = [torch.nn.functional.conv1d(
+            x[..., d:d + n_out + n_s - 2], F[d::2].T[:, None, :],
+            dilation=2, groups=hop)[0, :, :n_out] for d in (0, 1)]
+        return torch.cat(halves, dim=0).T                 # (n_out, n_ch)
+
+    with torch.backends.cudnn.flags(enabled=True, benchmark=True,
+                                    deterministic=False, allow_tf32=False):
+        return _fft_flip(fold(zr), fold(zi), n_ch)
+
+
+K4_LIBRARY = {"einsum fold + torch.fft.fft + flip": k4_library_einsum,
+              "conv1d fold + torch.fft.fft + flip": k4_library_conv}
 
 
 def phase_demod_kernels(dev) -> list[dict]:
@@ -150,7 +285,10 @@ def phase_demod_kernels(dev) -> list[dict]:
     rows = [dict(name="K1 agc_fll_rrc", max_abs_err=err_mf,
                  state_err=err_st,
                  ms=median_ms(lambda: DK.agc_fll_rrc(*args1), 20),
-                 plain_ms=median_ms(lambda: DK.agc_fll_rrc_plain(*args1), 5))]
+                 plain_ms=median_ms(
+                     lambda: DK.agc_fll_rrc_plain(*args1), 1, 3),
+                 library_ms=None,
+                 **k1_work(T_DEMOD, C_DEMOD, len(DK._host_tables()[1])))]
 
     # K2 on the same stage-1 output (the kernel's), from the carried state
     zero = torch.zeros_like(state.mm_pos)
@@ -197,7 +335,10 @@ def phase_demod_kernels(dev) -> list[dict]:
         channels_identical=share, first_difference=first,
         leak_stepped=stepped,
         ms=median_ms(lambda: MK.mm_costas(*args2, **lean), 20),
-        plain_ms=median_ms(lambda: MK.mm_costas_plain(*args2, **lean), 3)))
+        plain_ms=median_ms(
+            lambda: MK.mm_costas_plain(*args2, **lean), 1, 3),
+        library_ms=None,
+        **k2_work(T_DEMOD, C_DEMOD, n_chunks * DF.K_SYM, emit_syms=False)))
     return rows
 
 
@@ -230,17 +371,34 @@ def phase_front_kernels(dev, wide: np.ndarray) -> list[dict]:
     rows.append(dict(
         name="K3 fold_dft_resample", max_abs_err=err3, rms=rms,
         ms=median_ms(lambda: CK.fold_dft_resample(*a3), 20),
-        plain_ms=median_ms(lambda: CK.fold_dft_resample_plain(*a3), 5)))
+        plain_ms=median_ms(
+            lambda: CK.fold_dft_resample_plain(*a3), 1, 3),
+        library_ms=None, **k3_work(need, N_CH, 2 * CH.TAPS_PER_BRANCH, t36)))
     yk = CK.fold_dft(z[0], z[1], N_CH)
     yp = CK.fold_dft_plain(z[0], z[1], N_CH)
     torch.cuda.synchronize()
     rms4 = float(torch.sqrt((yp[0] ** 2 + yp[1] ** 2).mean()))
     err4 = max(maxerr(yk[0], yp[0]), maxerr(yk[1], yp[1]))
     check(err4 <= TOL_FRONT_REL * rms4, f"K4 error {err4} vs rms {rms4}")
+    libs = {}
+    for label, lib in K4_LIBRARY.items():
+        yl = lib(z[0], z[1], N_CH)
+        torch.cuda.synchronize()
+        err_lib = max(maxerr(yl[0], yp[0]), maxerr(yl[1], yp[1]))
+        check(err_lib <= TOL_FRONT_REL * rms4,
+              f"K4 yardstick {label}: error {err_lib} vs rms {rms4}")
+        t = batch_ms(lambda: lib(z[0], z[1], N_CH), 20, 9)
+        libs[label] = dict(ms=float(np.median(t)), min_ms=min(t),
+                           max_ms=max(t), max_abs_err=err_lib)
+    best = min(libs, key=lambda label: libs[label]["ms"])
+    t4 = batch_ms(lambda: CK.fold_dft(z[0], z[1], N_CH), 20, 9)
     rows.append(dict(
         name="K4 fold_dft", max_abs_err=err4, rms=rms4,
-        ms=median_ms(lambda: CK.fold_dft(z[0], z[1], N_CH), 20),
-        plain_ms=median_ms(lambda: CK.fold_dft_plain(z[0], z[1], N_CH), 5)))
+        ms=float(np.median(t4)), min_ms=min(t4), max_ms=max(t4),
+        plain_ms=median_ms(
+            lambda: CK.fold_dft_plain(z[0], z[1], N_CH), 1, 3),
+        library=best, library_ms=libs[best]["ms"], yardsticks=libs,
+        **k4_work(need, N_CH, 2 * CH.TAPS_PER_BRANCH)))
     return rows
 
 
@@ -289,6 +447,7 @@ def phase_slice(dev, wide: np.ndarray) -> dict:
         check(n > 0, f"{name} was not launched on the main path")
     sb_air = sb_adv / fs
     return dict(channels=N_CH, t50=T50, wb_k=WB_K, superblocks=len(walls),
+                superblocks_driven=n_super,
                 wideband_msps=(n_super - warm) * sb_adv / dt / 1e6,
                 rt_margin=sb_air / float(np.mean(walls)),
                 sb_air_ms=sb_air * 1e3,
@@ -320,8 +479,12 @@ def main() -> None:
     kernels = [dict(name=r["name"], route="cuda", source=SOURCES[r["name"]],
                     replaces=REPLACES[r["name"]],
                     launches=sl["launches"][r["name"]],
+                    launches_per_superblock=sl["launches"][r["name"]]
+                    / sl["superblocks_driven"],
                     max_abs_err=r["max_abs_err"], ms=r["ms"],
-                    plain_ms=r["plain_ms"]) for r in rows]
+                    plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                    bound_by=r["bound_by"], library_ms=r["library_ms"])
+               for r in rows]
     print(gpu)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

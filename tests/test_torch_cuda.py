@@ -36,10 +36,13 @@ def _maxerr(a, b) -> float:
     return float((a.double() - b.double()).abs().max())
 
 
-@pytest.mark.parametrize("C", [40, 256])
-def test_k1_matches_plain(dev, C):
-    """One 512-sample block of a heterogeneous fleet, cold state."""
-    xr, xi = heterogeneous_fleet_iq(1, C, 512, seed=C)
+@pytest.mark.parametrize("C, T", [(1, 512), (7, 512), (40, 512), (256, 512),
+                                  (257, 512), (40, 64)])
+def test_k1_matches_plain(dev, C, T):
+    """One block of a heterogeneous fleet, cold state: channel counts that
+    are not a multiple of the kernel's 2-channel blocks, and a one-group
+    block (T = 64)."""
+    xr, xi = heterogeneous_fleet_iq(1, C, T, seed=C)
     args = (torch.from_numpy(xr[0].T.copy()).to(dev),
             torch.from_numpy(xi[0].T.copy()).to(dev),
             torch.ones(C, device=dev), torch.zeros(C, device=dev),
@@ -55,12 +58,16 @@ def test_k1_matches_plain(dev, C):
         assert _maxerr(k[i], p[i]) <= 1e-4, i
 
 
-@pytest.mark.parametrize("C", [40, 256])
-def test_k2_matches_plain(dev, C):
-    """Stage 2 on the kernel's own stage-1 output of a fleet block (three
-    64-symbol groups: too few for the loops' switches to amplify last-bit
-    differences, so everything agrees closely)."""
-    T = 256
+@pytest.mark.parametrize("C, T, odd", [
+    (1, 256, False), (7, 256, False), (40, 256, False), (256, 256, False),
+    (257, 256, False), (40, 256, True), (40, 320, False)])
+def test_k2_matches_plain(dev, C, T, odd):
+    """Stage 2 on the kernel's own stage-1 output of a fleet block (a few
+    groups: too few for the loops' switches to amplify last-bit
+    differences, so everything agrees closely).  Channel counts that are
+    not a multiple of the kernel's 8-channel blocks; an odd chunk count
+    (32-symbol groups, one symbol per lane); and T = 320, where the timing
+    runs past T inside a group, so valid turns false mid-group."""
     xr, xi = heterogeneous_fleet_iq(1, C, T, seed=C + 1)
     mfr, mfi, *_ = DK.agc_fll_rrc(
         torch.from_numpy(xr[0].T.copy()).to(dev),
@@ -71,7 +78,7 @@ def test_k2_matches_plain(dev, C):
     st0 = torch.zeros(8, C, device=dev)
     st0[1] = DF._OMEGA_MIN + 0.5 * (DF._OMEGA_MAX - DF._OMEGA_MIN)
     tail = torch.zeros(7, C, device=dev)
-    n_chunks = DF.n_chunks_for(T)
+    n_chunks = DF.n_chunks_for(T) - (1 if odd else 0)
     n0 = MK.mm_costas.launches
     k = MK.mm_costas(mfr, mfi, st0, n_chunks, tail_re=tail, tail_im=tail)
     assert MK.mm_costas.launches == n0 + 1
@@ -79,6 +86,11 @@ def test_k2_matches_plain(dev, C):
                            tail_im=tail)
     assert torch.equal(k[3], p[3])
     v = p[3].bool()
+    G = DF.K_SYM * (1 if odd else 2)
+    per_group = v.reshape(-1, G, C)
+    mixed = per_group.any(dim=1) & ~per_group.all(dim=1)
+    if T == 320:
+        assert bool(mixed.any()), "no group where valid turns false"
     assert torch.equal(k[2][v], p[2][v])
     for i in (0, 1, 4):
         assert _maxerr(k[i][v], p[i][v]) <= 1e-3, i
@@ -119,3 +131,50 @@ def test_front_end_matches_plain(dev, n_ch, t50):
         hk, hp = rk[2:], rp[2:]
         for a, b in zip(rk, rp):
             assert _maxerr(a, b) <= 1e-4 * rms
+
+
+@pytest.mark.parametrize("C, spread", [(40, 0.0), (257, 0.0), (40, 1500.0)])
+def test_k2_layouts_agree(dev, C, spread):
+    """K2 with its group window staged in shared memory and with the taps
+    read directly from device memory gives identical outputs.  A channel's
+    outputs depend on its own inputs only, so the channels run twice: as
+    given, and with the last channel of every 8-channel block started
+    FAR samples later, which widens each such block's window past the rows
+    the kernel stages and sends the block to direct loads.  spread > 0
+    starts the channels up to that many samples apart (~38 per channel: a
+    block's window is ~410 rows), so the first run falls back too.  The
+    direct run is held against the plain version on the first group,
+    before any group sum: from a cold start a last-bit difference in a sum
+    can flip the Costas error's sign on a near-zero symbol, and the
+    channel then acquires along another path (ROADMAP Queue 3, acquisition
+    basins)."""
+    T, FAR = 3072, 1500.0
+    xr, xi = heterogeneous_fleet_iq(1, C, T, seed=C + 2)
+    mfr, mfi, *_ = DK.agc_fll_rrc(
+        torch.from_numpy(xr[0].T.copy()).to(dev),
+        torch.from_numpy(xi[0].T.copy()).to(dev),
+        torch.ones(C, device=dev), torch.zeros(C, device=dev),
+        torch.zeros(C, device=dev), torch.zeros(64, C, device=dev),
+        torch.zeros(64, C, device=dev))
+    st0 = torch.zeros(8, C, device=dev)
+    st0[0] = torch.linspace(0.0, spread, C, device=dev)
+    st0[1] = DF._OMEGA
+    moved = torch.arange(C, device=dev) % 8 == 7
+    st_far = st0.clone()
+    st_far[0] += torch.where(moved, FAR, 0.0)
+    tail = torch.zeros(7, C, device=dev)
+    n_chunks = DF.n_chunks_for(T)
+    base = MK.mm_costas(mfr, mfi, st0, n_chunks, tail_re=tail, tail_im=tail)
+    far = MK.mm_costas(mfr, mfi, st_far, n_chunks, tail_re=tail,
+                       tail_im=tail)
+    for a, b in zip(base, far):
+        assert torch.equal(a[:, ~moved], b[:, ~moved])
+    p = MK.mm_costas_plain(mfr, mfi, st_far, n_chunks, tail_re=tail,
+                           tail_im=tail)
+    head = slice(0, 2 * DF.K_SYM)
+    k1, p1 = [x[head] for x in far[:5]], [x[head] for x in p[:5]]
+    assert torch.equal(k1[3], p1[3])
+    v = p1[3].bool()
+    assert torch.equal(k1[2][v], p1[2][v])
+    for i in (0, 1, 4):
+        assert _maxerr(k1[i][v], p1[i][v]) <= 1e-3, i

@@ -58,3 +58,39 @@ def test_imports_without_jax(group):
     res = _run(mods)
     assert res.returncode == 0, res.stdout + res.stderr
     assert f"imported {len(mods)}" in res.stdout
+
+
+_ISOLATED = """
+import importlib, os, sys
+class _Blocked:
+    def find_spec(self, name, path=None, target=None):
+        if name.split('.')[0] in ('jax', 'jaxlib', 'tetra_tpu'):
+            raise ImportError('blocked: ' + name)
+sys.meta_path.insert(0, _Blocked())
+for m in sys.argv[1:]:
+    importlib.import_module(m)
+from tetra_tpu_torch.rx import fleet
+from tetra_tpu_torch.tx.wideband import cell_air
+wide = cell_air(4, 0.1, 2)
+assert wide.dtype.name == 'complex64' and wide.ndim == 1 and len(wide) > 0
+pkg = os.path.dirname(os.path.abspath(fleet.__file__ + '/..'))
+for src in (fleet._SRC, fleet._SRC_DEP):
+    assert os.path.commonpath([os.path.abspath(src), pkg]) == pkg, src
+bad = sorted(m for m in sys.modules
+             if m.split('.')[0] in ('jax', 'jaxlib', 'tetra_tpu'))
+assert not bad, bad
+print('isolated', len(sys.argv) - 1, len(wide))
+"""
+
+
+def test_runs_without_jax_or_tetra_tpu():
+    """With jax and the JAX package both blocked: every port module and
+    chip_smoke import, the cell_air fixture runs (4 channels, 0.1 s), and
+    the fleet engine's C++ sources lie inside tetra_tpu_torch/."""
+    mods = _modules() + ["chip_smoke"]
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = ROOT
+    res = subprocess.run([sys.executable, "-c", _ISOLATED] + mods, cwd=ROOT,
+                         env=env, capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert f"isolated {len(mods)}" in res.stdout

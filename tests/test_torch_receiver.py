@@ -13,6 +13,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 from tetra_tpu.rx.receiver import TetraReceiver as JaxReceiver
 from tetra_tpu.rx.tdma import TdmaTime
@@ -140,5 +141,12 @@ def test_unported_modes_raise(kw):
 
 
 def test_device_is_required():
-    with pytest.raises(ValueError, match="device"):
+    """With no device= the receiver runs on the current CUDA device; on a
+    machine without CUDA it raises rather than run on the CPU unasked."""
+    if torch.cuda.is_available():
+        rx = TetraReceiver(channels=2, fleet=True)
+        assert rx.device == torch.device("cuda", torch.cuda.current_device())
+        assert rx.state.agc_gain.device == rx.device
+        return
+    with pytest.raises(RuntimeError, match="CUDA is unavailable"):
         TetraReceiver(channels=2, fleet=True)

@@ -1,0 +1,62 @@
+"""chip_smoke.py's measurement helpers on the CPU: the K4 library
+yardsticks compute K4's function, and the bounds follow from the main
+path's shapes (K1 ~0.94 GFLOP and operation-bound, K2 ~16.9 MB and
+byte-bound, K4 ~19.8 MB against a fold plus an FFT)."""
+
+import os
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+
+import chip_smoke as CS  # noqa: E402
+from tetra_tpu_torch.ops import chan_kernel as CK  # noqa: E402
+from tetra_tpu_torch.parallel import channelizer as CH  # noqa: E402
+
+
+@pytest.mark.parametrize("label", sorted(CS.K4_LIBRARY))
+@pytest.mark.parametrize("n_ch, t50", [(16, 100), (64, 75)])
+def test_k4_library_yardstick_matches_plain(n_ch, t50, label):
+    rng = np.random.default_rng(n_ch)
+    rows = t50 + 2 * CH.TAPS_PER_BRANCH - 1
+    z = [torch.from_numpy(rng.standard_normal((rows, n_ch // 2)).astype(
+        np.float32)) for _ in range(2)]
+    lib = CS.K4_LIBRARY[label](z[0], z[1], n_ch)
+    ref = CK.fold_dft_plain(z[0], z[1], n_ch)
+    rms = float(torch.sqrt((ref[0] ** 2 + ref[1] ** 2).mean()))
+    for a, b in zip(lib, ref):
+        assert a.shape == b.shape
+        assert float((a - b).abs().max()) <= CS.TOL_FRONT_REL * rms
+
+
+@pytest.mark.parametrize("name", ["K1", "K2", "K3", "K4"])
+def test_bounds_at_main_path_shapes(name):
+    C, T, n_s = CS.C_DEMOD, CS.T_DEMOD, 2 * CH.TAPS_PER_BRANCH
+    rows = CS.T50 + n_s - 1
+    S = 2432
+    w = {"K1": lambda: CS.k1_work(T, C, 32),
+         "K2": lambda: CS.k2_work(T, C, S, emit_syms=False),
+         "K3": lambda: CS.k3_work(rows, CS.N_CH, n_s, CS.T50 * 18 // 25),
+         "K4": lambda: CS.k4_work(rows, CS.N_CH, n_s)}[name]()
+    assert w["bound_ms"] == pytest.approx(
+        max(w["bytes"] / CS.HBM_BYTES_PER_S, w["ops"] / CS.FP32_OPS_PER_S)
+        * 1e3)
+    if name == "K1":
+        assert w["bound_by"] == "operations"
+        assert 0.9e9 < w["ops"] < 1.0e9 and 18e6 < w["bytes"] < 20e6
+    if name == "K2":
+        assert w["bound_by"] == "bytes"
+        assert 16.5e6 < w["bytes"] < 17.5e6
+    if name == "K4":
+        # a fold (256 x 48 x 4) and a length-256 FFT (5 x 256 x 8) per
+        # frame, 6400 frames; z in and the frames out, ~19.8 MB
+        assert w["bound_by"] == "bytes"
+        assert 0.37e9 < w["ops"] < 0.39e9 and 19e6 < w["bytes"] < 20.5e6
+    if name == "K3":
+        # K4's work plus the resample's 4608 x 256 x 96 ops
+        assert w["bound_by"] == "operations"
+        assert 0.49e9 < w["ops"] < 0.51e9 and 15.5e6 < w["bytes"] < 17e6

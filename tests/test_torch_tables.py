@@ -41,7 +41,7 @@ TABLES = {
     "fll_tap_offsets": (lambda: TDF._fll_tap_offsets(64),
                         lambda: JDF._fll_tap_offsets(64)),
     "band_stack": (_port_band_stack, lambda: DP._band_stack(False)),
-    "k1_taps": (lambda: DK._device_tables("cpu")[0].numpy(),
+    "k1_taps": (lambda: DK._host_tables()[0],
                 lambda: np.concatenate([np.stack(JD._tables()[1]),
                                         JD._tables()[0][None]])),
     "prototype_256": (lambda: TCH._prototype(256),
@@ -103,3 +103,192 @@ def test_loop_constant_equal(name):
 @pytest.mark.parametrize("T", [512, 1024, 4608])
 def test_n_chunks_for_equal(T):
     assert TDF.n_chunks_for(T) == JDF.n_chunks_for(T)
+
+
+# ---------------------------------------------------------------------------
+# The port's copies of host-only modules (it imports nothing of tetra_tpu):
+# each copy is held to its original here.
+
+import ctypes
+import os
+
+from tetra_tpu import params as JP
+from tetra_tpu.core import taps as JTAPS
+from tetra_tpu.rx import display as JDISP
+from tetra_tpu.rx import native_mac as JNM
+from tetra_tpu.rx.tdma import TdmaTime as JTdmaTime
+from tetra_tpu.tx import burst as JBURST
+from tetra_tpu.tx import cell as JCELL
+from tetra_tpu.tx import fec_enc as JFEC_ENC
+from tetra_tpu_torch import params as TP
+from tetra_tpu_torch.core import taps as TTAPS
+from tetra_tpu_torch.rx import display as TDISP
+from tetra_tpu_torch.rx import fleet as TFLEET
+from tetra_tpu_torch.rx import native_mac as TNM
+from tetra_tpu_torch.rx.tdma import TdmaTime as TTdmaTime
+from tetra_tpu_torch.tx import burst as TBURST
+from tetra_tpu_torch.tx import cell as TCELL
+from tetra_tpu_torch.tx import fec_enc as TFEC_ENC
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _same(a, b):
+    """Deep equality of constants: arrays exactly, containers item by
+    item, functions (the puncturers' index maps) on their domain."""
+    if callable(a):
+        assert callable(b)
+        for j in range(1, 600):
+            assert a(j) == b(j), j
+    elif isinstance(a, dict):
+        assert a.keys() == b.keys()
+        for k in a:
+            _same(a[k], b[k])
+    elif isinstance(a, (tuple, list)):
+        assert type(a) is type(b) and len(a) == len(b)
+        for x, y in zip(a, b):
+            _same(x, y)
+    elif isinstance(a, np.ndarray):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        np.testing.assert_array_equal(a, b)
+    else:
+        assert type(a) is type(b) and a == b, (a, b)
+
+
+PARAM_NAMES = sorted(n for n in vars(JP) if n.isupper())
+
+
+def test_params_names_equal():
+    assert PARAM_NAMES == sorted(n for n in vars(TP) if n.isupper())
+
+
+@pytest.mark.parametrize("name", PARAM_NAMES)
+def test_params_constant_equal(name):
+    _same(getattr(TP, name), getattr(JP, name))
+
+
+@pytest.mark.parametrize("fn", ["scramb_get_init", "puncture_indices",
+                                "interleave_indices"])
+def test_params_function_equal(fn):
+    args = {"scramb_get_init": [(262, 1234, 7), (901, 16383, 63)],
+            "puncture_indices": [(p, 432) for p in range(7)],
+            "interleave_indices": [(216, 101), (120, 11), (432, 103)]}[fn]
+    for a in args:
+        _same(np.asarray(getattr(TP, fn)(*a)),
+              np.asarray(getattr(JP, fn)(*a)))
+
+
+TAPS = {
+    "rrc_65": lambda m: m.root_raised_cosine(65, 0.35, 1.0, 2.0),
+    "rrc_33": lambda m: m.root_raised_cosine(33, 0.25, 18000.0, 36000.0),
+    "nuttall": lambda m: m.nuttall(np.arange(1024), 1024),
+    "band_edge": lambda m: np.stack(m.band_edge_pair(65, 0.35, 1.0, 2.0)),
+    "interp_bank": lambda m: m.interp_bank(),
+}
+
+
+@pytest.mark.parametrize("name", sorted(TAPS))
+def test_taps_copy_equal(name):
+    _same(np.asarray(TAPS[name](TTAPS)), np.asarray(TAPS[name](JTAPS)))
+
+
+def _fec_burst_cases():
+    rng = np.random.default_rng(11)
+    t1 = {bt: rng.integers(0, 2, JP.BLK_PARAMS[bt][3]).astype(np.uint8)
+          for bt in JP.BLK_PARAMS}
+    sb = lambda m: m.build_sync_burst(
+        *(rng_bits(m, bt) for bt in (JP.TPSAP_T_SB1, JP.TPSAP_T_BBK,
+                                     JP.TPSAP_T_SB2)))
+
+    def rng_bits(m, bt):
+        enc = TFEC_ENC if m is TBURST else JFEC_ENC
+        return enc.encode_block(t1[bt], bt, 0x1234567)
+
+    return {
+        "crc16": lambda m: np.asarray(m.crc16_bits(t1[JP.TPSAP_T_NDB])),
+        "conv_encode": lambda m: m.conv_encode(t1[JP.TPSAP_T_SB2]),
+        "scramb_keystream": lambda m: m.scramb_keystream(0x2468ACE, 432),
+        "rm3014": lambda m: m.rm3014_encode(t1[JP.TPSAP_T_BBK]),
+        **{f"encode_block_{bt}": (lambda m, bt=bt: m.encode_block(
+            t1[bt], bt, 0x1234567)) for bt in JP.BLK_PARAMS},
+        "sync_burst": sb,
+        "norm_burst": lambda m: m.build_norm_burst(
+            rng_bits(m, JP.TPSAP_T_NDB), rng_bits(m, JP.TPSAP_T_BBK),
+            rng_bits(m, JP.TPSAP_T_NDB), two_log_chan=True),
+    }
+
+
+FEC_BURST = _fec_burst_cases()
+
+
+@pytest.mark.parametrize("name", sorted(FEC_BURST))
+def test_fec_enc_and_burst_copy_equal(name):
+    fn = FEC_BURST[name]
+    port = TBURST if name.endswith("burst") else TFEC_ENC
+    ref = JBURST if name.endswith("burst") else JFEC_ENC
+    _same(np.asarray(fn(port)), np.asarray(fn(ref)))
+
+
+@pytest.mark.parametrize("frag", [False, True])
+def test_downlink_bits_copy_equal(frag):
+    """A seeded signalling cell (no voice, no crypto): bits and records."""
+    kw = {}
+    if frag:
+        msg = np.random.default_rng(5).integers(0, 2, 260).astype(np.uint8)
+        kw["frag_message"] = ((3, 2), msg)
+    cfg = dict(mcc=262, mnc=105, cc=6)
+    tb, trec = TCELL.downlink_bits(
+        TCELL.CellConfig(**cfg), 300, start=TTdmaTime(mn=2, fn=1, tn=1),
+        payload_rng=np.random.default_rng(3), **kw)
+    jb, jrec = JCELL.downlink_bits(
+        JCELL.CellConfig(**cfg), 300, start=JTdmaTime(mn=2, fn=1, tn=1),
+        payload_rng=np.random.default_rng(3), **kw)
+    _same(tb, jb)
+    assert [(r.kind, vars(r.time)) for r in trec] == \
+        [(r.kind, vars(r.time)) for r in jrec]
+    assert {r.kind for r in trec} >= ({"sync", "ndb", "frag_start",
+                                       "frag_end"} if frag
+                                      else {"sync", "ndb"})
+    for a, b in zip(trec, jrec):
+        _same(a.type1, b.type1)
+
+
+@pytest.mark.parametrize("arg", ["voice_slots", "stolen_slots", "crypto"])
+def test_downlink_bits_unported_args_raise(arg):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 13"):
+        TCELL.downlink_bits(TCELL.CellConfig(), 4, **{arg: {1: None}})
+
+
+def test_display_state_fields_equal():
+    t, j = TDISP.DisplayState(), JDISP.DisplayState()
+    assert t.as_dict() == j.as_dict()
+    assert list(t.as_dict()) == list(j.as_dict())
+
+
+def _layout(struct):
+    out = []
+    for name, typ in struct._fields_:
+        sub = _layout(typ) if hasattr(typ, "_fields_") else typ.__name__
+        out.append((name, getattr(struct, name).offset, ctypes.sizeof(typ),
+                    sub))
+    return out
+
+
+@pytest.mark.parametrize("name", ["MacStateStruct", "AachStruct",
+                                  "SysinfoStruct"])
+def test_mac_state_struct_layout_equal(name):
+    t, j = getattr(TNM, name), getattr(JNM, name)
+    assert ctypes.sizeof(t) == ctypes.sizeof(j)
+    assert _layout(t) == _layout(j)
+
+
+@pytest.mark.parametrize("src", ["fleet.cpp", "macparse.cpp"])
+def test_native_source_copy_byte_equal(src):
+    """The fleet engine builds from the port's own copy of the C++ source,
+    which stays byte-equal to the JAX package's."""
+    port = os.path.join(TFLEET._NATIVE, src)
+    assert os.path.commonpath([port, os.path.join(ROOT, "tetra_tpu_torch")]) \
+        == os.path.join(ROOT, "tetra_tpu_torch")
+    with open(port, "rb") as a, open(os.path.join(
+            ROOT, "tetra_tpu", "rx", "native", src), "rb") as b:
+        assert a.read() == b.read()

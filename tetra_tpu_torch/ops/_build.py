@@ -64,11 +64,12 @@ def library_path() -> str:
 
 def _declare(lib) -> None:
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    # x(2), state(3), hist(2), taps, offs | Kd | mf(2), state(3), hist(2) |
-    # T, C | r_eff, setpoint, squelch, max_gain, beta_d, freq_lim | stream
+    # x(2), state(3), hist(2), taps (host), offs (host) | Kd |
+    # mf(2), state(3), hist(2) | T, C |
+    # r_eff, setpoint, squelch, max_gain, beta_d, freq_lim | stream
     lib.launch_agc_fll_rrc.argtypes = (
         [P] * 9 + [I] + [P] * 7 + [I, I] + [F] * 6 + [P])
-    # mf(2), tail(2), st0, polys, sym(2), dib, val, dist, st_out |
+    # mf(2), tail(2), st0, polys (host), sym(2), dib, val, dist, st_out |
     # T, C, n_groups, G | 9 gains/limits | stream
     lib.launch_mm_costas.argtypes = [P] * 12 + [I] * 4 + [F] * 9 + [P]
     # z(2), F, Wt(2), y(2) | n_out, n_ch, n_s | stream

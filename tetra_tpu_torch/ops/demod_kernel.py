@@ -8,10 +8,12 @@ fir_stream_pair.  Layout: time-major (T, C) float32, channels contiguous.
 
 from __future__ import annotations
 
+from functools import lru_cache
+
 import numpy as np
 import torch
 
-from tetra_tpu import params as P
+from .. import params as P
 from ..core.fir import fir_stream_pair
 from ..rx import demod_fast as DF
 from ..rx.demod import _FLL_FREQ_LIM, _tables
@@ -19,20 +21,16 @@ from . import _build
 
 HIST = P.RRC_TAP_COUNT - 1      # 64
 
-_CONST: dict = {}
-
-
-def _device_tables(device):
-    """(5, 65) taps [lo_r, lo_i, hi_r, hi_i, rrc] and the decimated
-    band-edge tap offsets, resident on `device`."""
-    key = str(device)
-    if key not in _CONST:
-        rrc, be, _ = _tables()
-        taps = np.stack(list(be) + [np.asarray(rrc, np.float32)])
-        offs = DF._fll_tap_offsets(DF.K_SAMP).astype(np.int32)
-        _CONST[key] = (torch.from_numpy(taps).to(device),
-                       torch.from_numpy(offs).to(device))
-    return _CONST[key]
+@lru_cache(maxsize=None)
+def _host_tables():
+    """(5, 65) float32 taps [lo_r, lo_i, hi_r, hi_i, rrc] and the int32
+    decimated band-edge tap offsets, in host memory: the launcher passes
+    them to the kernel by value (its constant bank)."""
+    rrc, be, _ = _tables()
+    taps = np.ascontiguousarray(
+        np.stack(list(be) + [np.asarray(rrc, np.float32)]), np.float32)
+    offs = np.ascontiguousarray(DF._fll_tap_offsets(DF.K_SAMP), np.int32)
+    return taps, offs
 
 
 def agc_fll_rrc_plain(xr_t, xi_t, gain, phase, freq, hist_r, hist_i):
@@ -72,7 +70,7 @@ def agc_fll_rrc(xr_t, xi_t, gain, phase, freq, hist_r, hist_i):
                        (freq, (C,), "freq"), (hist_r, (HIST, C), "hist_r"),
                        (hist_i, (HIST, C), "hist_i")):
         _check(t, shp, nm)
-    taps, offs = _device_tables(xr_t.device)
+    taps, offs = _host_tables()
     dev = xr_t.device
     mfr = torch.empty((T, C), dtype=torch.float32, device=dev)
     mfi = torch.empty_like(mfr)
@@ -86,7 +84,7 @@ def agc_fll_rrc(xr_t, xi_t, gain, phase, freq, hist_r, hist_i):
     err = lib.launch_agc_fll_rrc(
         xr_t.data_ptr(), xi_t.data_ptr(), gain.data_ptr(), phase.data_ptr(),
         freq.data_ptr(), hist_r.data_ptr(), hist_i.data_ptr(),
-        taps.data_ptr(), offs.data_ptr(), int(offs.numel()),
+        taps.ctypes.data, offs.ctypes.data, int(offs.size),
         mfr.data_ptr(), mfi.data_ptr(), g_out.data_ptr(), p_out.data_ptr(),
         f_out.data_ptr(), hr_out.data_ptr(), hi_out.data_ptr(),
         T, C,

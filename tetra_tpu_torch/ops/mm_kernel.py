@@ -18,10 +18,12 @@ sym_re/sym_im unless emit_syms=False, and the final (8, C) state.
 
 from __future__ import annotations
 
+from functools import lru_cache
+
 import numpy as np
 import torch
 
-from tetra_tpu import params as P
+from .. import params as P
 from ..rx import demod_fast as DF
 from ..rx.demod import _DIFF_REMAP
 from . import _build
@@ -49,11 +51,19 @@ _POLYS: dict = {}
 
 
 def _device_polys(device) -> torch.Tensor:
+    """(2, 6, 8) [bank, derivative] polynomials on `device` (the plain
+    version's operands)."""
     key = str(device)
     if key not in _POLYS:
-        Pb, Pd = DF._bank_polys()
-        _POLYS[key] = torch.from_numpy(np.stack([Pb, Pd])).to(device)
+        _POLYS[key] = torch.from_numpy(_host_polys()).to(device)
     return _POLYS[key]
+
+
+@lru_cache(maxsize=None)
+def _host_polys() -> np.ndarray:
+    """The same polynomials in host memory: the launcher passes them to
+    the kernel by value (its constant bank)."""
+    return np.ascontiguousarray(np.stack(DF._bank_polys()), np.float32)
 
 
 def mm_costas_plain(mfr, mfi, st0, n_chunks: int, emit_syms: bool = True,
@@ -180,17 +190,19 @@ def mm_costas(mfr, mfi, st0, n_chunks: int, emit_syms: bool = True,
     dist = torch.empty((S, C), dtype=torch.float32, device=dev)
     st_out = torch.empty((8, C), dtype=torch.float32, device=dev)
     k = _gains(pair)
+    polys = _host_polys()
     lib = _build.load()
     err = lib.launch_mm_costas(
         mfr.data_ptr(), mfi.data_ptr(), tail_re.data_ptr(), tail_im.data_ptr(),
         st0.data_ptr(),
-        _device_polys(dev).data_ptr(),
+        polys.ctypes.data,
         sym_r.data_ptr() if emit_syms else None,
         sym_i.data_ptr() if emit_syms else None,
         dib.data_ptr(), val.data_ptr(), dist.data_ptr(), st_out.data_ptr(),
         T, C, n_chunks * DF.K_SYM // G, G,
         k["mu_g"], k["om_g"], k["omega_min"], k["omega_max"], k["ca_g"],
-        k["cb_g"], k["clim"], k["leak_th"], PI4, _build.stream_of(mfr))
+        k["cb_g"], k["clim"], k["leak_th"], PI4,
+        _build.stream_of(mfr))
     _build.check(err, "mm_costas")
     mm_costas.launches += 1
     syms = [sym_r, sym_i] if emit_syms else []

@@ -15,7 +15,8 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from tetra_tpu.core.taps import nuttall
+from .. import resolve_device
+from ..core.taps import nuttall
 
 TAPS_PER_BRANCH = 48
 RS_TAPS_PER_PHASE = 24
@@ -82,10 +83,12 @@ def _front_end_block(xr, xi, hr, hi, n_ch: int, t36: int):
     return fold_dft_resample(zr, zi, hr, hi, n_ch, t36)
 
 
-def channelize(iq: np.ndarray, n_ch: int, device) -> np.ndarray:
+def channelize(iq: np.ndarray, n_ch: int, device=None) -> np.ndarray:
     """Host-facing: wideband complex (T,) at n_ch*25 kHz -> (n_ch, T2)
-    complex at 50 kHz per channel, computed on `device`."""
+    complex at 50 kHz per channel, computed on `device` (the current CUDA
+    device unless the caller asks for the CPU)."""
     iq = np.asarray(iq)
+    device = resolve_device(device)
     xr = torch.from_numpy(iq.real.astype(np.float32)).to(device)
     xi = torch.from_numpy(iq.imag.astype(np.float32)).to(device)
     yr, yi = _channelize_block_impl(xr, xi, n_ch)

@@ -10,8 +10,8 @@ from __future__ import annotations
 
 import numpy as np
 
-from tetra_tpu import params as P
-from tetra_tpu.core import taps as taps_mod
+from .. import params as P
+from ..core import taps as taps_mod
 
 
 def critically_damped(bandwidth: float, damping: float = np.sqrt(2.0) / 2.0

@@ -19,7 +19,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from tetra_tpu import params as P
+from .. import params as P
+from .. import resolve_device
 from .demod import (_COSTAS_ALPHA as _COSTAS_ALPHA_REF,
                     _COSTAS_BETA as _COSTAS_BETA_REF,
                     _FLL_BETA as _FLL_BETA_REF,
@@ -77,8 +78,12 @@ class FastDemodState(NamedTuple):
     prev_sym: torch.Tensor     # (C,) int32
 
 
-def demod_init(channels: int, device) -> FastDemodState:
+def demod_init(channels: int, device=None) -> FastDemodState:
+    """Cold demod state for `channels` channels on `device` (the current
+    CUDA device unless the caller asks for the CPU).  demod_block(s) run
+    on the device of the state they are given."""
     C = channels
+    device = resolve_device(device)
     zf = lambda: torch.zeros(C, dtype=torch.float32, device=device)
     z2 = lambda n: torch.zeros(C, n, dtype=torch.float32, device=device)
     return FastDemodState(

@@ -18,8 +18,8 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from tetra_tpu import params as P
-from tetra_tpu.tx import fec_enc
+from .. import params as P
+from ..tx import fec_enc
 from .viterbi import viterbi_decode
 
 

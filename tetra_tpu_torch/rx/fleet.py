@@ -26,15 +26,16 @@ import threading
 import numpy as np
 import torch
 
-from tetra_tpu import params as P
-from tetra_tpu.rx.display import DisplayState
-from tetra_tpu.rx.native_mac import MacStateStruct
-from tetra_tpu.rx.tdma import TdmaTime
+from .. import params as P
+from .. import resolve_device
 from ..ops._build import BUILD_DIR
 from . import fec as rx_fec
+from .display import DisplayState
+from .native_mac import MacStateStruct
+from .tdma import TdmaTime
 
-_NATIVE = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__)))), "tetra_tpu", "rx", "native")
+_NATIVE = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "csrc", "host")
 _SRC = os.path.join(_NATIVE, "fleet.cpp")
 _SRC_DEP = os.path.join(_NATIVE, "macparse.cpp")
 
@@ -138,13 +139,14 @@ def load():
 
 class FleetEngine:
     """Owns the native per-channel state for `channels` channels; the FEC
-    runs on `device`."""
+    runs on `device` (the current CUDA device unless the caller asks for
+    the CPU)."""
 
-    def __init__(self, channels: int, device, voice_cb=None):
+    def __init__(self, channels: int, device=None, voice_cb=None):
         lib = load()
         self.lib = lib
         self.channels = channels
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.voice_cb = voice_cb
         y = np.ascontiguousarray(P.TRAIN_Y, np.uint8)
         n = np.ascontiguousarray(P.TRAIN_N, np.uint8)

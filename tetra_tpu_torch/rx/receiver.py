@@ -92,8 +92,8 @@ class TetraReceiver:
         process_wideband_staged(); channels is forced to N, t50 sets the
         per-channel 50 kHz samples per internal block (t50*18/25 must be a
         multiple of the demod chunk), and wb_k cycles run per superblock.
-        device: the torch device everything runs on ("cuda" or "cpu"),
-        required."""
+        device: the torch device everything runs on: the current CUDA
+        device by default, "cpu" only when asked for (resolve_device)."""
         if not fleet:
             raise NotImplementedError(
                 "only the fleet receiver is ported: the per-channel "

@@ -19,7 +19,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from tetra_tpu import params as P
+from .. import params as P
 
 N_STATES = 16  # K=5 -> 2^(K-1)
 _NEG = -1e9

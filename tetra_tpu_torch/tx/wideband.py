@@ -1,16 +1,19 @@
 """Host-side TX fixtures for the port (numpy; no jax, no torch).
 
-jax-free copies of tetra_tpu/tx/wideband.synthesize_wideband and of the
-benchmark's heterogeneous_fleet_iq (bench.py), whose originals import jax
-through the modulator.  Same code, same seeds, same outputs.
+Copies of tetra_tpu/tx/wideband.synthesize_wideband and of the benchmark's
+heterogeneous_fleet_iq (bench.py), whose originals import jax through the
+modulator.  Same code, same seeds, same outputs.  The cell bit streams come
+from the port's own tx/cell.py.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from tetra_tpu import params as P
-from tetra_tpu.core.taps import root_raised_cosine
+from .. import params as P
+from ..core.taps import root_raised_cosine
+from ..rx.tdma import TdmaTime
+from .cell import CellConfig, downlink_bits
 
 # phase step per dibit, in radians (ETSI table 9.14)
 _DIBIT_PHASE = np.array([1, 3, -1, -3], np.float32) * (np.pi / 4.0)
@@ -94,9 +97,6 @@ def cell_air(channels: int, seconds: float, n_cells: int = 8,
     The 50 kHz length T50 is kept 7-smooth: the synthesis FFT has
     T50 * channels/2 points, and one large prime factor there turns
     seconds into minutes."""
-    from tetra_tpu.rx.tdma import TdmaTime
-    from tetra_tpu.tx.cell import CellConfig, downlink_bits
-
     n_slots = int(seconds / 0.014167) + 4
     streams = [downlink_bits(CellConfig(mcc=262, mnc=100 + i, cc=1 + i),
                              n_slots, start=TdmaTime(mn=2, fn=14, tn=1))[0]
@@ -133,8 +133,6 @@ def staged_windows(wide: np.ndarray, advance: int, wide_len: int,
 
 def locked_downlink_iq(n_samples: int) -> np.ndarray:
     """One continuous TETRA downlink stream (complex64, 2 sps)."""
-    from tetra_tpu.tx.cell import CellConfig, downlink_bits
-
     n_bits = n_samples
     n_slots = -(-n_bits // P.BITS_PER_TS) + 1
     bits, _ = downlink_bits(CellConfig(), n_slots)
