@@ -24,7 +24,9 @@ function where they exist, else null.  For K4 two such yardsticks are
 timed, each a fold then one torch.fft.fft and the flip: the fold as an
 einsum over a strided view of the input, and as dilated depthwise conv1d
 with cuDNN's algorithm chosen by timing; library_ms is the faster, and
-the row keeps both with their spread (the port never calls them).
+the row keeps both with their spread.  K3's yardstick is that faster one
+followed by the plain resampler (one einsum against its superblock
+matrix), with its spread.  The port never calls them.
 
 The line before the last is a JSON object of per-kernel results; the last
 line is {"ok": true, "device": {...}}.  Needs a CUDA device and exits
@@ -183,9 +185,9 @@ def k2_work(T: int, C: int, S: int, emit_syms: bool) -> dict:
 def k4_work(rows: int, n_ch: int, n_s: int) -> dict:
     """K4's function at its least work, per 50 kHz frame: the fold, n_ch
     branches x n_s/2 taps x 2 (re, im) FMAs; a length-n_ch complex FFT,
-    5 n_ch log2(n_ch) operations (the kernel's n_ch^2 matrix DFT is more
-    work than the function needs); the flip 2 n_ch.  Bytes: z and the fold
-    weights in, the frames out."""
+    5 n_ch log2(n_ch) operations (the kernel's algorithm at a power-of-two
+    n_ch); the flip 2 n_ch.  Bytes: z and the fold weights in, the frames
+    out."""
     n_out = rows - (n_s - 1)
     hop = n_ch // 2
     fft = 5 * n_ch * int(np.log2(n_ch))
@@ -256,6 +258,14 @@ def k4_library_conv(zr, zi, n_ch: int):
 
 K4_LIBRARY = {"einsum fold + torch.fft.fft + flip": k4_library_einsum,
               "conv1d fold + torch.fft.fft + flip": k4_library_conv}
+
+
+def k3_library(k4_label: str, zr, zi, hr, hi, n_ch: int, t36: int):
+    """K3's function by PyTorch library calls, a yardstick only: the K4
+    yardstick k4_label, then the resample as one einsum against the
+    superblock matrix (channelizer._resample_stream_block_fm)."""
+    yr, yi = K4_LIBRARY[k4_label](zr, zi, n_ch)
+    return CH._resample_stream_block_fm(yr, yi, hr, hi, t36)
 
 
 def phase_demod_kernels(dev) -> list[dict]:
@@ -367,13 +377,6 @@ def phase_front_kernels(dev, wide: np.ndarray) -> list[dict]:
     rms = float(torch.sqrt((rp[0] ** 2 + rp[1] ** 2).mean()))
     err3 = max(maxerr(rk[0], rp[0]), maxerr(rk[1], rp[1]))
     check(err3 <= TOL_FRONT_REL * rms, f"K3 error {err3} vs rms {rms}")
-    a3 = (z[0], z[1], hk[0], hk[1], N_CH, t36)
-    rows.append(dict(
-        name="K3 fold_dft_resample", max_abs_err=err3, rms=rms,
-        ms=median_ms(lambda: CK.fold_dft_resample(*a3), 20),
-        plain_ms=median_ms(
-            lambda: CK.fold_dft_resample_plain(*a3), 1, 3),
-        library_ms=None, **k3_work(need, N_CH, 2 * CH.TAPS_PER_BRANCH, t36)))
     yk = CK.fold_dft(z[0], z[1], N_CH)
     yp = CK.fold_dft_plain(z[0], z[1], N_CH)
     torch.cuda.synchronize()
@@ -392,6 +395,25 @@ def phase_front_kernels(dev, wide: np.ndarray) -> list[dict]:
                            max_ms=max(t), max_abs_err=err_lib)
     best = min(libs, key=lambda label: libs[label]["ms"])
     t4 = batch_ms(lambda: CK.fold_dft(z[0], z[1], N_CH), 20, 9)
+
+    a3 = (z[0], z[1], hk[0], hk[1], N_CH, t36)
+    r3 = CK.fold_dft_resample_plain(*a3)
+    l3 = k3_library(best, *a3)
+    torch.cuda.synchronize()
+    err_l3 = max(maxerr(l3[0], r3[0]), maxerr(l3[1], r3[1]))
+    check(err_l3 <= TOL_FRONT_REL * rms,
+          f"K3 yardstick {best} + resample: error {err_l3} vs rms {rms}")
+    t3 = batch_ms(lambda: CK.fold_dft_resample(*a3), 20, 9)
+    tl3 = batch_ms(lambda: k3_library(best, *a3), 20, 9)
+    rows.append(dict(
+        name="K3 fold_dft_resample", max_abs_err=err3, rms=rms,
+        ms=float(np.median(t3)), min_ms=min(t3), max_ms=max(t3),
+        plain_ms=median_ms(
+            lambda: CK.fold_dft_resample_plain(*a3), 1, 3),
+        library=best + ", then the resample einsum",
+        library_ms=float(np.median(tl3)), library_min_ms=min(tl3),
+        library_max_ms=max(tl3), library_max_abs_err=err_l3,
+        **k3_work(need, N_CH, 2 * CH.TAPS_PER_BRANCH, t36)))
     rows.append(dict(
         name="K4 fold_dft", max_abs_err=err4, rms=rms4,
         ms=float(np.median(t4)), min_ms=min(t4), max_ms=max(t4),

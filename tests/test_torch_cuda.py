@@ -108,10 +108,15 @@ def test_k2_matches_plain(dev, C, T, odd):
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("n_ch, t50", [(16, 800), (16, 775), (64, 800)])
+@pytest.mark.parametrize("n_ch, t50", [
+    (16, 800), (16, 775), (64, 800), (128, 800), (256, 775), (512, 400),
+    (1024, 100), (48, 800)])
 def test_front_end_matches_plain(dev, n_ch, t50):
     """K4, and K3 (K4 + resample) over two streamed blocks, with t50 on
-    and off the reference's 800-row tile."""
+    and off the reference's 800-row tile.  K4's FFT kernel at n_ch = 16 to
+    1024: a radix-2 stage first at 128 and 512 (odd log2), 8 and 4 frames
+    per block at 512 and 1024, a tail block at t50 = 775; n_ch = 48 takes
+    the matrix-DFT kernel."""
     rng = np.random.default_rng(n_ch + t50)
     hop = n_ch // 2
     need = t50 + 2 * CH.TAPS_PER_BRANCH - 1

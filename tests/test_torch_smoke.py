@@ -1,6 +1,6 @@
-"""chip_smoke.py's measurement helpers on the CPU: the K4 library
-yardsticks compute K4's function, and the bounds follow from the main
-path's shapes (K1 ~0.94 GFLOP and operation-bound, K2 ~16.9 MB and
+"""chip_smoke.py's measurement helpers on the CPU: the K4 and K3 library
+yardsticks compute K4's and K3's functions, and the bounds follow from the
+main path's shapes (K1 ~0.94 GFLOP and operation-bound, K2 ~16.9 MB and
 byte-bound, K4 ~19.8 MB against a fold plus an FFT)."""
 
 import os
@@ -27,6 +27,27 @@ def test_k4_library_yardstick_matches_plain(n_ch, t50, label):
         np.float32)) for _ in range(2)]
     lib = CS.K4_LIBRARY[label](z[0], z[1], n_ch)
     ref = CK.fold_dft_plain(z[0], z[1], n_ch)
+    rms = float(torch.sqrt((ref[0] ** 2 + ref[1] ** 2).mean()))
+    for a, b in zip(lib, ref):
+        assert a.shape == b.shape
+        assert float((a - b).abs().max()) <= CS.TOL_FRONT_REL * rms
+
+
+@pytest.mark.parametrize("label", sorted(CS.K4_LIBRARY))
+@pytest.mark.parametrize("n_ch, t50", [(16, 100), (64, 75)])
+def test_k3_library_yardstick_matches_plain(n_ch, t50, label):
+    """K3's yardstick (a K4 yardstick, then the resample einsum) computes
+    K3's function, carried history included."""
+    rng = np.random.default_rng(n_ch + 1)
+    rows = t50 + 2 * CH.TAPS_PER_BRANCH - 1
+    pad = CH.RS_TAPS_PER_PHASE - 1
+    z = [torch.from_numpy(rng.standard_normal((rows, n_ch // 2)).astype(
+        np.float32)) for _ in range(2)]
+    h = [torch.from_numpy(rng.standard_normal((pad, n_ch)).astype(
+        np.float32)) for _ in range(2)]
+    t36 = t50 * 18 // 25
+    lib = CS.k3_library(label, *z, *h, n_ch, t36)
+    ref = CK.fold_dft_resample_plain(*z, *h, n_ch, t36)
     rms = float(torch.sqrt((ref[0] ** 2 + ref[1] ** 2).mean()))
     for a, b in zip(lib, ref):
         assert a.shape == b.shape

@@ -72,8 +72,8 @@ def _declare(lib) -> None:
     # mf(2), tail(2), st0, polys (host), sym(2), dib, val, dist, st_out |
     # T, C, n_groups, G | 9 gains/limits | stream
     lib.launch_mm_costas.argtypes = [P] * 12 + [I] * 4 + [F] * 9 + [P]
-    # z(2), F, Wt(2), y(2) | n_out, n_ch, n_s | stream
-    lib.launch_fold_dft.argtypes = [P] * 7 + [I] * 3 + [P]
+    # z(2), F, twiddles, Wt(2), y(2) | n_out, n_ch, n_s | stream
+    lib.launch_fold_dft.argtypes = [P] * 8 + [I] * 3 + [P]
     # x(2), hist(2), coef, off, y(2) | t_out, C, L, M, ntap, pad | stream
     lib.launch_resample.argtypes = [P] * 8 + [I] * 6 + [P]
     for name in ("launch_agc_fll_rrc", "launch_mm_costas",

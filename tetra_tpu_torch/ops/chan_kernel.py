@@ -7,7 +7,9 @@ PyTorch versions are the channelizer's composition (fold by shifted
 slices, DFT by matmul against the f32 basis, sign flip; then the
 superblock-matrix resampler).  fold_dft_resample launches the K4 kernel
 through fold_dft and then the resample kernel, so one K3 call counts one
-launch on each wrapper's `launches`.
+launch on each wrapper's `launches`.  K4's kernel computes the DFT as a
+Stockham FFT for n_ch a power of two from 16 to 1024 (twiddle table from
+_tables) and as a matrix product against the W basis otherwise.
 
 Layout: z is the hop-reshaped wideband block (n_out + 95, n_ch/2) float32;
 outputs are frame-major (rows = 50 kHz or 36 kHz frames, columns =
@@ -42,22 +44,46 @@ def _resamp_taps() -> tuple[np.ndarray, np.ndarray]:
     return np.ascontiguousarray(coef, np.float32), off
 
 
+def _fft_path(n_ch: int) -> bool:
+    """Whether csrc/chan.cu:launch_fold_dft takes its FFT kernel (power of
+    two n_ch in [16, 1024]) rather than its matrix-DFT kernel."""
+    return 16 <= n_ch <= 1024 and n_ch & (n_ch - 1) == 0
+
+
+def _twiddles(n_ch: int) -> np.ndarray:
+    """(n_ch, 2) float32 [re, im] of exp(-2 pi i t / n_ch), t < n_ch:
+    computed in float64, rounded once (channelizer._dft_basis's sign)."""
+    w = np.exp(-2j * np.pi * np.arange(n_ch) / n_ch).astype(np.complex64)
+    return np.ascontiguousarray(w.view(np.float32).reshape(n_ch, 2))
+
+
 def _tables(n_ch: int, device):
+    """Fold weights F, twiddles, resample taps coef and offsets off."""
     key = (n_ch, str(device))
     if key not in _CONST:
-        Wr, Wi = CH._dft_basis(n_ch)
         coef, off = _resamp_taps()
-        arrs = (_fold_weights(CH._prototype(n_ch), n_ch),
-                np.ascontiguousarray(Wr.T), np.ascontiguousarray(Wi.T),
+        arrs = (_fold_weights(CH._prototype(n_ch), n_ch), _twiddles(n_ch),
                 coef, off)
         _CONST[key] = tuple(torch.from_numpy(a).to(device) for a in arrs)
+    return _CONST[key]
+
+
+def _dft_tables(n_ch: int, device):
+    """(Wtr, Wti): the (n_ch, n_ch) f32 DFT basis, [b][k], for the plain
+    version and the matrix-DFT kernel."""
+    key = ("W", n_ch, str(device))
+    if key not in _CONST:
+        Wr, Wi = CH._dft_basis(n_ch)
+        _CONST[key] = (torch.from_numpy(np.ascontiguousarray(Wr.T)).to(device),
+                       torch.from_numpy(np.ascontiguousarray(Wi.T)).to(device))
     return _CONST[key]
 
 
 def fold_dft_plain(zr, zi, n_ch: int):
     """Plain PyTorch K4: zr/zi (n_out + 2*TPB - 1, hop) -> frame-major
     (n_out, n_ch) yr, yi with the (-1)^(m k) flip applied."""
-    F, Wtr, Wti, _, _ = _tables(n_ch, zr.device)
+    F = _tables(n_ch, zr.device)[0]
+    Wtr, Wti = _dft_tables(n_ch, zr.device)
     n_s = F.shape[0]
     n_out = zr.shape[0] - (n_s - 1)
     acc = [[0.0, 0.0], [0.0, 0.0]]            # [re/im][d]
@@ -102,13 +128,15 @@ def fold_dft(zr, zi, n_ch: int):
     if zr.device.type != "cuda":
         raise ValueError(f"fold_dft: unsupported device {zr.device}")
     n_out = _check_z(zr, zi, n_ch)
-    F, Wtr, Wti, _, _ = _tables(n_ch, zr.device)
+    F, tw, _, _ = _tables(n_ch, zr.device)
+    W = (None, None) if _fft_path(n_ch) else tuple(
+        w.data_ptr() for w in _dft_tables(n_ch, zr.device))
     yr = torch.empty((n_out, n_ch), dtype=torch.float32, device=zr.device)
     yi = torch.empty_like(yr)
     err = _build.load().launch_fold_dft(
-        zr.data_ptr(), zi.data_ptr(), F.data_ptr(), Wtr.data_ptr(),
-        Wti.data_ptr(), yr.data_ptr(), yi.data_ptr(), n_out, n_ch,
-        int(F.shape[0]), _build.stream_of(zr))
+        zr.data_ptr(), zi.data_ptr(), F.data_ptr(), tw.data_ptr(), *W,
+        yr.data_ptr(), yi.data_ptr(), n_out, n_ch, int(F.shape[0]),
+        _build.stream_of(zr))
     _build.check(err, "fold_dft")
     fold_dft.launches += 1
     return yr, yi
@@ -132,7 +160,7 @@ def fold_dft_resample(zr, zi, hr, hi, n_ch: int, t36: int):
     t50 = yr.shape[0]
     if t36 * M_RS != t50 * L_RS:
         raise ValueError(f"t36={t36} does not match t50={t50} at 18/25")
-    _, _, _, coef, off = _tables(n_ch, zr.device)
+    _, _, coef, off = _tables(n_ch, zr.device)
     rr = torch.empty((t36, n_ch), dtype=torch.float32, device=zr.device)
     ri = torch.empty_like(rr)
     err = _build.load().launch_resample(
