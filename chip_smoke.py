@@ -16,6 +16,17 @@ Phases, each printing one line (any failure raises and exits non-zero):
    8-cell air; gates: > 90% of channels locked, crc_ok > 3 x crc_fail after
    warm-up, the cells' MCC/MNC decoded, and every kernel launched.
 
+K3's row also carries its second kernel, the resample, timed alone on
+K4's output (resample_ms, 9 runs of 20 launches with min-max, and
+resample_device_ms) beside its own bound and its error against
+channelizer._resample_stream_block_fm;
+K3's and K4's rows carry device_ms, the sum of their kernels' device rows
+in one torch.profiler window over 20 launches, divided by 20, and
+host_ms, the wrapper's host time per call (an event time above device_ms
+is host_ms showing through).  The profiler windows run after the slice,
+and the kernel lines are printed after them: launches right after a
+profiler session take longer on the host.
+
 Each kernel row carries its bound on the card (bound_ms: the larger of its
 bytes over the HBM rate and its operations over the FP32 rate, from this
 run's shapes; bound_by says which), its launches per superblock on the
@@ -42,6 +53,7 @@ import time
 
 import numpy as np
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 from tetra_tpu_torch import exact_float32
 from tetra_tpu_torch.ops import _build
@@ -49,6 +61,7 @@ from tetra_tpu_torch.ops import chan_kernel as CK
 from tetra_tpu_torch.ops import demod_kernel as DK
 from tetra_tpu_torch.ops import mm_kernel as MK
 from tetra_tpu_torch.parallel import channelizer as CH
+from tetra_tpu_torch.profile_slice import _device_ms
 from tetra_tpu_torch.rx import demod_fast as DF
 from tetra_tpu_torch.rx.receiver import TetraReceiver
 from tetra_tpu_torch.tx.wideband import (cell_air, heterogeneous_fleet_iq,
@@ -139,6 +152,22 @@ def batch_ms(fn, launches: int, batches: int) -> list[float]:
     return times
 
 
+def host_ms(fn, launches: int = 20, batches: int = 9) -> float:
+    """Host time per call of fn: the host clock around `launches` calls in
+    a row that only queue work (the card is synchronized before each
+    run), median of `batches` runs.  Above the device time, it sets the
+    event time of batch_ms."""
+    times = []
+    for _ in range(batches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(launches):
+            fn()
+        times.append((time.perf_counter() - t0) * 1e3 / launches)
+    torch.cuda.synchronize()
+    return float(np.median(times))
+
+
 def median_ms(fn, launches: int, batches: int = 5) -> float:
     return float(np.median(batch_ms(fn, launches, batches)))
 
@@ -208,6 +237,33 @@ def k3_work(rows: int, n_ch: int, n_s: int, t36: int) -> dict:
                      + 18 * ntap + 18 + 4 * (ntap - 1) * n_ch
                      + 2 * t36 * n_ch)
     return bound(n_bytes, ops)
+
+
+def resample_work(t_in: int, C: int, t36: int) -> dict:
+    """The resample alone (K3's second kernel): 2 x 24 FMAs per output;
+    bytes: y, history, taps and offsets in, the 36 kHz rows and the next
+    block's history out."""
+    ntap = CH.RS_TAPS_PER_PHASE
+    n_bytes = F32 * (2 * t_in * C + 4 * (ntap - 1) * C + 18 * ntap + 18
+                     + 2 * t36 * C)
+    return bound(n_bytes, t36 * C * 2 * 2 * ntap)
+
+
+def device_ms(fn, launches: int = 20) -> tuple[float | None, dict]:
+    """Device time per call of fn: the sum of the device rows of one
+    torch.profiler window over `launches` calls, over `launches`; and the
+    same per kernel name.  (None, {}) if the profiler saw no device time."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(launches):
+            fn()
+        torch.cuda.synchronize()
+    per = {e.key: _device_ms(e) / launches for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA
+           and _device_ms(e) > 0}
+    return (sum(per.values()) if per else None), per
 
 
 def _fft_flip(fr, fi, n_ch: int):
@@ -352,9 +408,10 @@ def phase_demod_kernels(dev) -> list[dict]:
     return rows
 
 
-def phase_front_kernels(dev, wide: np.ndarray) -> list[dict]:
+def phase_front_kernels(dev, wide: np.ndarray) -> tuple[list[dict], list]:
     """K4 and K3 against their plain versions over two streamed blocks of
-    the synthesized wideband air."""
+    the synthesized wideband air.  Returns the rows and the profiler jobs
+    (row, key, fn) that phase_device_times runs after every timed phase."""
     hop = N_CH // 2
     wide_len = (T50 - 1) * hop + N_CH * CH.TAPS_PER_BRANCH
     adv = T50 * hop
@@ -395,6 +452,24 @@ def phase_front_kernels(dev, wide: np.ndarray) -> list[dict]:
                            max_ms=max(t), max_abs_err=err_lib)
     best = min(libs, key=lambda label: libs[label]["ms"])
     t4 = batch_ms(lambda: CK.fold_dft(z[0], z[1], N_CH), 20, 9)
+    h4 = host_ms(lambda: CK.fold_dft(z[0], z[1], N_CH))
+
+    # the resample alone (K3's second kernel) on K4's output
+    a_rs = (yk[0], yk[1], hk[0], hk[1], t36)
+    rs = CK.resample(*a_rs)
+    rs_p = CH._resample_stream_block_fm(*a_rs)
+    torch.cuda.synchronize()
+    rms_rs = float(torch.sqrt((rs_p[0] ** 2 + rs_p[1] ** 2).mean()))
+    err_rs = max(maxerr(rs[0], rs_p[0]), maxerr(rs[1], rs_p[1]))
+    check(err_rs <= TOL_FRONT_REL * rms_rs,
+          f"resample error {err_rs} vs rms {rms_rs}")
+    for tails in (rs[2:], rk[2:]):          # the resample's, K3's
+        check(torch.equal(tails[0], yk[0][-pad:])
+              and torch.equal(tails[1], yk[1][-pad:]),
+              "next block's history differs from K4's last rows")
+    t_rs = batch_ms(lambda: CK.resample(*a_rs), 20, 9)
+    h_rs = host_ms(lambda: CK.resample(*a_rs))
+    w_rs = resample_work(T50, N_CH, t36)
 
     a3 = (z[0], z[1], hk[0], hk[1], N_CH, t36)
     r3 = CK.fold_dft_resample_plain(*a3)
@@ -404,10 +479,19 @@ def phase_front_kernels(dev, wide: np.ndarray) -> list[dict]:
     check(err_l3 <= TOL_FRONT_REL * rms,
           f"K3 yardstick {best} + resample: error {err_l3} vs rms {rms}")
     t3 = batch_ms(lambda: CK.fold_dft_resample(*a3), 20, 9)
+    h3 = host_ms(lambda: CK.fold_dft_resample(*a3))
     tl3 = batch_ms(lambda: k3_library(best, *a3), 20, 9)
     rows.append(dict(
         name="K3 fold_dft_resample", max_abs_err=err3, rms=rms,
         ms=float(np.median(t3)), min_ms=min(t3), max_ms=max(t3),
+        host_ms=h3,
+        resample_ms=float(np.median(t_rs)), resample_min_ms=min(t_rs),
+        resample_max_ms=max(t_rs), resample_host_ms=h_rs,
+        resample_bound_ms=w_rs["bound_ms"],
+        resample_bound_by=w_rs["bound_by"], resample_bytes=w_rs["bytes"],
+        resample_max_abs_err=err_rs, resample_rms=rms_rs,
+        resample_plain_ms=median_ms(
+            lambda: CH._resample_stream_block_fm(*a_rs), 1, 3),
         plain_ms=median_ms(
             lambda: CK.fold_dft_resample_plain(*a3), 1, 3),
         library=best + ", then the resample einsum",
@@ -417,11 +501,25 @@ def phase_front_kernels(dev, wide: np.ndarray) -> list[dict]:
     rows.append(dict(
         name="K4 fold_dft", max_abs_err=err4, rms=rms4,
         ms=float(np.median(t4)), min_ms=min(t4), max_ms=max(t4),
+        host_ms=h4,
         plain_ms=median_ms(
             lambda: CK.fold_dft_plain(z[0], z[1], N_CH), 1, 3),
         library=best, library_ms=libs[best]["ms"], yardsticks=libs,
         **k4_work(need, N_CH, 2 * CH.TAPS_PER_BRANCH)))
-    return rows
+    k3, k4 = rows
+    jobs = [(k3, "device_ms", lambda: CK.fold_dft_resample(*a3)),
+            (k3, "resample_device_ms", lambda: CK.resample(*a_rs)),
+            (k4, "device_ms", lambda: CK.fold_dft(z[0], z[1], N_CH))]
+    return rows, jobs
+
+
+def phase_device_times(jobs: list) -> None:
+    """Each job's device_ms (and its kernels' rows) into its row.  Runs
+    last: launches right after a torch.profiler session take longer on
+    the host, which would show in the event times and the slice."""
+    for row, key, fn in jobs:
+        row[key], per = device_ms(fn)
+        row[key.replace("device_ms", "device_kernels_ms")] = per
 
 
 def phase_slice(dev, wide: np.ndarray) -> dict:
@@ -493,11 +591,14 @@ def main() -> None:
     print(f"fixture: {len(wide)} wideband samples "
           f"({len(wide) / (N_CH * 25_000):.2f} s of air) in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    rows = phase_demod_kernels(dev) + phase_front_kernels(dev, wide)
-    for r in rows:
-        print("kernel: " + json.dumps(r), flush=True)
+    demod = phase_demod_kernels(dev)
+    front, jobs = phase_front_kernels(dev, wide)
+    rows = demod + front
     sl = phase_slice(dev, wide)
     print(f"slice: gpu=[{gpu}] " + json.dumps(sl), flush=True)
+    phase_device_times(jobs)
+    for r in rows:
+        print("kernel: " + json.dumps(r), flush=True)
     kernels = [dict(name=r["name"], route="cuda", source=SOURCES[r["name"]],
                     replaces=REPLACES[r["name"]],
                     launches=sl["launches"][r["name"]],
@@ -505,7 +606,10 @@ def main() -> None:
                     / sl["superblocks_driven"],
                     max_abs_err=r["max_abs_err"], ms=r["ms"],
                     plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-                    bound_by=r["bound_by"], library_ms=r["library_ms"])
+                    bound_by=r["bound_by"], library_ms=r["library_ms"],
+                    **{k: r[k] for k in ("device_ms", "resample_ms",
+                                         "resample_device_ms",
+                                         "resample_bound_ms") if k in r})
                for r in rows]
     print(gpu)
     print(json.dumps({"kernels": kernels}))

@@ -138,6 +138,56 @@ def test_front_end_matches_plain(dev, n_ch, t50):
             assert _maxerr(a, b) <= 1e-4 * rms
 
 
+@pytest.mark.parametrize("n_ch, t50", [
+    (16, 25), (16, 775), (16, 6400), (48, 25), (48, 775), (48, 6400),
+    (256, 25), (256, 775), (256, 6400), (16, 91025)])
+def test_resample_matches_plain(dev, n_ch, t50):
+    """K3's resample kernel alone, over two chained blocks, at the shapes
+    of tests/test_torch_resample_plan.py: one group, a ragged last tile,
+    masked lanes (C = 16, 48), and t36 = 65538 (the earlier kernel's grid
+    refused t36 > 65535).  The tails are the input's last 23 rows."""
+    rng = np.random.default_rng(n_ch + t50)
+    t36 = t50 * 18 // 25
+    pad = CH.RS_TAPS_PER_PHASE - 1
+    h = [torch.from_numpy(rng.standard_normal((pad, n_ch)).astype(
+        np.float32)).to(dev) for _ in range(2)]
+    hk = hp = tuple(h)
+    for _ in range(2):
+        y = [torch.from_numpy(rng.standard_normal((t50, n_ch)).astype(
+            np.float32)).to(dev) for _ in range(2)]
+        n0 = CK.resample.launches
+        rk = CK.resample(*y, *hk, t36)
+        assert CK.resample.launches == n0 + 1
+        rp = CH._resample_stream_block_fm(*y, *hp, t36)
+        rms = float(torch.sqrt((rp[0] ** 2 + rp[1] ** 2).mean()))
+        for a, b in zip(rk[:2], rp[:2]):
+            assert a.shape == b.shape
+            assert _maxerr(a, b) <= 1e-4 * rms
+        for a, b in zip(rk[2:], y):
+            assert torch.equal(a, b[-pad:])
+        hk, hp = rk[2:], rp[2:]
+
+
+@pytest.mark.parametrize("n_ch, t50", [(16, 800), (48, 775), (256, 6400)])
+def test_k3_tails_are_k4_last_rows(dev, n_ch, t50):
+    """K3's next-block history, written by its resample kernel, equals the
+    last 23 rows of K4's output on the same input; one K3 call counts one
+    launch on fold_dft and one on fold_dft_resample."""
+    rng = np.random.default_rng(n_ch)
+    hop, pad = n_ch // 2, CH.RS_TAPS_PER_PHASE - 1
+    need = t50 + 2 * CH.TAPS_PER_BRANCH - 1
+    z = [torch.from_numpy(rng.standard_normal((need, hop)).astype(
+        np.float32)).to(dev) for _ in range(2)]
+    h = torch.zeros(pad, n_ch, device=dev)
+    n4, n3 = CK.fold_dft.launches, CK.fold_dft_resample.launches
+    rk = CK.fold_dft_resample(*z, h, h, n_ch, t50 * 18 // 25)
+    assert (CK.fold_dft.launches, CK.fold_dft_resample.launches) == (
+        n4 + 1, n3 + 1)
+    yk = CK.fold_dft(*z, n_ch)
+    assert torch.equal(rk[2], yk[0][-pad:])
+    assert torch.equal(rk[3], yk[1][-pad:])
+
+
 @pytest.mark.parametrize("C, spread", [(40, 0.0), (257, 0.0), (40, 1500.0)])
 def test_k2_layouts_agree(dev, C, spread):
     """K2 with its group window staged in shared memory and with the taps

@@ -62,6 +62,9 @@ _CALLS = {
     "fold_dft_resample": lambda: CK.fold_dft_resample(
         *(torch.empty(100, 4, **_META),) * 2,
         *(torch.empty(23, 8, **_META),) * 2, 8, 4),
+    "resample": lambda: CK.resample(
+        *(torch.empty(25, 8, **_META),) * 2,
+        *(torch.empty(23, 8, **_META),) * 2, 18),
 }
 
 

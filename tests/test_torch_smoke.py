@@ -1,7 +1,8 @@
 """chip_smoke.py's measurement helpers on the CPU: the K4 and K3 library
 yardsticks compute K4's and K3's functions, and the bounds follow from the
 main path's shapes (K1 ~0.94 GFLOP and operation-bound, K2 ~16.9 MB and
-byte-bound, K4 ~19.8 MB against a fold plus an FFT)."""
+byte-bound, K4 ~19.8 MB against a fold plus an FFT, K3's resample alone
+~22.6 MB and byte-bound)."""
 
 import os
 import sys
@@ -54,7 +55,7 @@ def test_k3_library_yardstick_matches_plain(n_ch, t50, label):
         assert float((a - b).abs().max()) <= CS.TOL_FRONT_REL * rms
 
 
-@pytest.mark.parametrize("name", ["K1", "K2", "K3", "K4"])
+@pytest.mark.parametrize("name", ["K1", "K2", "K3", "K4", "resample"])
 def test_bounds_at_main_path_shapes(name):
     C, T, n_s = CS.C_DEMOD, CS.T_DEMOD, 2 * CH.TAPS_PER_BRANCH
     rows = CS.T50 + n_s - 1
@@ -62,7 +63,9 @@ def test_bounds_at_main_path_shapes(name):
     w = {"K1": lambda: CS.k1_work(T, C, 32),
          "K2": lambda: CS.k2_work(T, C, S, emit_syms=False),
          "K3": lambda: CS.k3_work(rows, CS.N_CH, n_s, CS.T50 * 18 // 25),
-         "K4": lambda: CS.k4_work(rows, CS.N_CH, n_s)}[name]()
+         "K4": lambda: CS.k4_work(rows, CS.N_CH, n_s),
+         "resample": lambda: CS.resample_work(CS.T50, CS.N_CH,
+                                              CS.T50 * 18 // 25)}[name]()
     assert w["bound_ms"] == pytest.approx(
         max(w["bytes"] / CS.HBM_BYTES_PER_S, w["ops"] / CS.FP32_OPS_PER_S)
         * 1e3)
@@ -81,3 +84,13 @@ def test_bounds_at_main_path_shapes(name):
         # K4's work plus the resample's 4608 x 256 x 96 ops
         assert w["bound_by"] == "operations"
         assert 0.49e9 < w["ops"] < 0.51e9 and 15.5e6 < w["bytes"] < 17e6
+    if name == "resample":
+        # y (6400 x 256) and the 23-row history in, the 4608 x 256 rows and
+        # the next history out, re and im, and the (18, 24) taps and 18
+        # offsets; 2 x 24 FMAs per output
+        C, t36, pad = CS.N_CH, CS.T50 * 18 // 25, CH.RS_TAPS_PER_PHASE - 1
+        assert w["bytes"] == 4 * (2 * CS.T50 * C + 2 * t36 * C
+                                  + 4 * pad * C + 18 * 24 + 18)
+        assert w["ops"] == t36 * C * 96
+        assert w["bound_by"] == "bytes"
+        assert 22.5e6 < w["bytes"] < 22.7e6

@@ -1,21 +1,45 @@
 // K4 (fold + DFT + hop-phase flip) and the 18/25 polyphase resample that,
 // after it, makes up K3: the wideband front end.
 //
-// Replaces the TPU kernels tetra_tpu/ops/chan_pallas.py:fold_dft (K4) and
-// :fold_dft_resample (K3).  Semantics are the plain channelizer's
+// Replaces the TPU kernels tetra_tpu/ops/chan_pallas.py:195 fold_dft (K4)
+// and :144 fold_dft_resample (K3).  Semantics are the plain channelizer's
 // (tetra_tpu_torch/ops/chan_kernel.fold_dft_plain and
 // tetra_tpu_torch/parallel/channelizer._resample_stream_block_fm):
 //
 //   fold:  f[m, d*hop + c] = sum_j z[m + 2j + d, c] F[2j + d, c]
 //   DFT:   y[m, k] = sum_b f[m, b] exp(-2 pi i b k / n_ch)
 //   flip:  y[m, k] *= (-1)^(m k)
-//   resample: out[18q + p] = sum_t coef[p, t] x[25q + off[p] + t] over the
-//             stream [23-row history | y]
+//   resample: out[18q + p, c] = sum_{t<24} coef[p, t] s[25q + off[p] + t, c]
+//             over the stream s = [h (23-row history) | y (t50 rows)]; the
+//             next block's history is y's last 23 rows
 //
-// K3 is two launches: the K4 kernel, then resample_kernel reading the
-// frame-major 50 kHz rows it wrote.  The TPU kernel carried a 25-row halo
-// through its sequential grid instead; on the card every output row simply
-// reads its 24 input rows (history rows included) from device memory.
+// K3 is two kernels behind one C entry point (launch_fold_dft_resample):
+// the K4 kernel writes the frame-major 50 kHz rows y, then resample_kernel
+// reads them.  The TPU kernel is one launch because its grid runs in order
+// and carries the resampler's 25-row halo in VMEM from step to step.
+// Blocks on the card run in no order, so one fused kernel would either
+// fold and FFT each block's 23 halo frames again (46% more fold + FFT work
+// at 2 resample groups a block; at 4, only 64 blocks for 132 SMs, one a
+// SM by shared memory), or wait on the previous block's frames through
+// flags (spin waits, ordered block tickets).  Both cost more than what
+// they save: one launch, and one read of 13 MB that the K4 kernel has just
+// written and that stays in the 50 MB L2.
+//
+// The resample is bound by bytes: y and h in, the 36 kHz rows and the
+// tails out, 22.6 MB at n_ch = 256, t50 = 6400, against 0.11 G FP32
+// operations.  resample_kernel's tile plan: a block of 256 threads takes
+// 32 channels (lane = channel) and 8 resample groups (25 input, 18 output
+// rows each).  It stages the stream rows 25 q0 .. 25 q0 + 222 of its
+// channels in shared memory (re and im as [row][32] arrays, 57 KB; rows
+// below 23 come from h), so each y row is read from L2 once plus the
+// 23-row halo, where reading the taps straight from memory read it ~17
+// times.  Warp w makes the block's outputs w, w + 8, ...: the phase p is
+// the same over the warp, so each tap is a broadcast from shared memory,
+// and each output sums its 24 taps in tap order with fmaf.  The stores
+// are coalesced; lanes past C and groups past the stream's end are
+// masked.  The block that holds y's last 23 rows (the last group tile;
+// it stages one row more than its outputs read for that) writes them as
+// the next block's history.
 //
 // K4's function is bound by bytes on the card (z in, y out: ~20 MB at
 // n_ch = 256, t50 = 6400); its least work is the fold's 48 complex taps
@@ -38,11 +62,21 @@
 // against the host's W table.
 #include <cuda_runtime.h>
 
+#include "cp_async.cuh"
+
 #define TM 16
 #define FOLD_THREADS 256
 #define TPB 48            // taps per branch: channelizer.TAPS_PER_BRANCH
 #define FFT_THREADS 256
 #define FFT_POINTS 4096   // FT * n_ch of the FFT kernel's blocks above 256
+#define RS_L 18           // resample: output rows a group
+#define RS_M 25           // input rows a group
+#define RS_TAPS 24        // channelizer.RS_TAPS_PER_PHASE
+#define RS_PAD 23         // history rows: RS_TAPS - 1
+#define RS_CT 32          // channels a block: one warp width
+#define RS_G 8            // resample groups a block
+#define RS_THREADS 256
+#define RS_ROWS (RS_M * RS_G + RS_PAD)  // stream rows a block stages
 
 __global__ void __launch_bounds__(FOLD_THREADS)
 fold_dft_kernel(const float *__restrict__ zr, const float *__restrict__ zi,
@@ -218,37 +252,85 @@ fold_fft_kernel(const float *__restrict__ zr, const float *__restrict__ zi,
   }
 }
 
-__global__ void resample_kernel(const float *__restrict__ xr,
-                                const float *__restrict__ xi,  // (t_in, C)
-                                const float *__restrict__ hr,
-                                const float *__restrict__ hi,  // (pad, C)
-                                const float *__restrict__ coef,  // (L, ntap)
-                                const int *__restrict__ off,     // (L,)
-                                float *__restrict__ yr, float *__restrict__ yi,
-                                int t_out, int C, int L, int M, int ntap,
-                                int pad) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  const int n = blockIdx.y;
-  if (c >= C || n >= t_out) return;
-  const int q = n / L, p = n - q * L;
-  const int base = q * M + off[p];  // row of the [history | x] stream
-  float ar = 0.0f, ai = 0.0f;
-  for (int t = 0; t < ntap; ++t) {
-    int e = base + t;
-    float vr, vi;
-    if (e < pad) {
-      vr = hr[(size_t)e * C + c];
-      vi = hi[(size_t)e * C + c];
-    } else {
-      vr = xr[(size_t)(e - pad) * C + c];
-      vi = xi[(size_t)(e - pad) * C + c];
+// Grid (ceil(C / 32), ceil(t_in / 25 / 8)): block (x, y) takes channels
+// 32 x .. 32 x + 31 and groups 8 y .. 8 y + 7 (the head note's tile plan).
+__global__ void __launch_bounds__(RS_THREADS)
+resample_kernel(const float *__restrict__ xr,
+                const float *__restrict__ xi,    // (t_in, C): y
+                const float *__restrict__ hr,
+                const float *__restrict__ hi,    // (RS_PAD, C): history
+                const float *__restrict__ coef,  // (RS_L, RS_TAPS)
+                const int *__restrict__ off,     // (RS_L,)
+                float *__restrict__ yr,
+                float *__restrict__ yi,          // (t_out, C)
+                float *__restrict__ tr,
+                float *__restrict__ ti,          // (RS_PAD, C): next history
+                int t_in, int C) {
+  extern __shared__ float4 sm4[];
+  float(*sr)[RS_CT] = reinterpret_cast<float(*)[RS_CT]>(sm4);
+  float(*si)[RS_CT] = sr + RS_ROWS;
+  float *cs = &si[RS_ROWS][0];  // [RS_L][RS_TAPS], 16-byte aligned
+  int *os = reinterpret_cast<int *>(cs + RS_L * RS_TAPS);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int n_warps = RS_THREADS / 32;
+  const int c = blockIdx.x * RS_CT + lane;
+  const int q0 = blockIdx.y * RS_G;
+  const int g = min(RS_G, t_in / RS_M - q0);    // groups in this tile
+  const int e0 = q0 * RS_M;                     // first staged stream row
+  const int rows = g * RS_M + RS_PAD;  // the last tile's reach the
+                                       // stream's end
+  // Stage stream rows e0 .. e0 + rows - 1, a warp a row (128 B, lane =
+  // channel); which source a row comes from is uniform over the warp.
+  if (c < C) {
+    for (int r = warp; r < rows; r += n_warps) {
+      const int e = e0 + r;
+      const bool hist = e < RS_PAD;
+      const size_t at = (size_t)(hist ? e : e - RS_PAD) * C + c;
+      cp_async4(&sr[r][lane], (hist ? hr : xr) + at);
+      cp_async4(&si[r][lane], (hist ? hi : xi) + at);
     }
-    float w = coef[p * ntap + t];
-    ar = fmaf(w, vr, ar);
-    ai = fmaf(w, vi, ai);
   }
-  yr[(size_t)n * C + c] = ar;
-  yi[(size_t)n * C + c] = ai;
+  for (int i = threadIdx.x; i < RS_L * RS_TAPS; i += RS_THREADS)
+    cs[i] = coef[i];
+  if (threadIdx.x < RS_L) os[threadIdx.x] = off[threadIdx.x];
+  cp_async_commit();
+  cp_async_wait0();
+  __syncthreads();
+
+  // Output j = 18 ql + p of the tile reads staged rows 25 ql + off[p] + t.
+  for (int j = warp; j < g * RS_L; j += n_warps) {
+    const int ql = j / RS_L, p = j - ql * RS_L;
+    const int base = ql * RS_M + os[p];
+    const float4 *w4 = reinterpret_cast<const float4 *>(cs + p * RS_TAPS);
+    float ar = 0.0f, ai = 0.0f;
+#pragma unroll
+    for (int t4 = 0; t4 < RS_TAPS / 4; ++t4) {
+      const float4 w = w4[t4];
+      const int r = base + 4 * t4;
+      ar = fmaf(w.x, sr[r][lane], ar);
+      ai = fmaf(w.x, si[r][lane], ai);
+      ar = fmaf(w.y, sr[r + 1][lane], ar);
+      ai = fmaf(w.y, si[r + 1][lane], ai);
+      ar = fmaf(w.z, sr[r + 2][lane], ar);
+      ai = fmaf(w.z, si[r + 2][lane], ai);
+      ar = fmaf(w.w, sr[r + 3][lane], ar);
+      ai = fmaf(w.w, si[r + 3][lane], ai);
+    }
+    if (c < C) {
+      const size_t n = (size_t)q0 * RS_L + j;
+      yr[n * C + c] = ar;
+      yi[n * C + c] = ai;
+    }
+  }
+
+  // The last tile holds the stream's last RS_PAD rows (y's last rows):
+  // the next block's history.
+  if (blockIdx.y == gridDim.y - 1 && c < C) {
+    for (int r = warp; r < RS_PAD; r += n_warps) {
+      tr[(size_t)r * C + c] = sr[g * RS_M + r][lane];
+      ti[(size_t)r * C + c] = si[g * RS_M + r][lane];
+    }
+  }
 }
 
 template <int FT>
@@ -309,17 +391,51 @@ extern "C" int launch_fold_dft(const void *zr, const void *zi, const void *F,
   return (int)cudaGetLastError();
 }
 
+// The resample's group tiles (the grid's y dimension), or 0 for a shape it
+// does not take: t_in a positive multiple of 25 and t_out = t_in * 18 / 25.
+static int resample_tiles(int t_in, int t_out, int C) {
+  if (C <= 0 || t_in <= 0 || t_in % RS_M || t_out != t_in / RS_M * RS_L)
+    return 0;
+  const int tiles = (t_in / RS_M + RS_G - 1) / RS_G;
+  return tiles <= 65535 ? tiles : 0;
+}
+
+// x (t_in, C) and the (RS_PAD, C) history h in; the (t_out, C) rows y and
+// the next block's history t out.  t may not alias h.
 extern "C" int launch_resample(const void *xr, const void *xi, const void *hr,
                                const void *hi, const void *coef,
-                               const void *off, void *yr, void *yi, int t_out,
-                               int C, int L, int M, int ntap, int pad,
+                               const void *off, void *yr, void *yi, void *tr,
+                               void *ti, int t_in, int t_out, int C,
                                void *stream) {
-  if (C <= 0 || t_out <= 0 || t_out > 65535) return (int)cudaErrorInvalidValue;
-  dim3 block(128);
-  dim3 grid((C + 127) / 128, t_out);
-  resample_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
+  const int tiles = resample_tiles(t_in, t_out, C);
+  if (tiles == 0) return (int)cudaErrorInvalidValue;
+  const int smem = (2 * RS_ROWS * RS_CT + RS_L * RS_TAPS + RS_L) * 4;
+  cudaError_t e = cudaFuncSetAttribute(
+      resample_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid((C + RS_CT - 1) / RS_CT, tiles);
+  resample_kernel<<<grid, RS_THREADS, smem, (cudaStream_t)stream>>>(
       (const float *)xr, (const float *)xi, (const float *)hr,
       (const float *)hi, (const float *)coef, (const int *)off, (float *)yr,
-      (float *)yi, t_out, C, L, M, ntap, pad);
+      (float *)yi, (float *)tr, (float *)ti, t_in, C);
   return (int)cudaGetLastError();
+}
+
+// K3: the K4 kernel (launch_fold_dft's choice of path) writes the 50 kHz
+// rows into the scratch y (n_out, n_ch), then the resample kernel reads
+// them, on one stream.  Returns the first non-zero cudaError_t; a shape
+// the resample does not take is refused before either launch.
+extern "C" int launch_fold_dft_resample(
+    const void *zr, const void *zi, const void *F, const void *tw,
+    const void *Wtr, const void *Wti, void *y_r, void *y_i, const void *hr,
+    const void *hi, const void *coef, const void *off, void *rr, void *ri,
+    void *tr, void *ti, int n_out, int n_ch, int n_s, int t_out,
+    void *stream) {
+  if (resample_tiles(n_out, t_out, n_ch) == 0)
+    return (int)cudaErrorInvalidValue;
+  const int e = launch_fold_dft(zr, zi, F, tw, Wtr, Wti, y_r, y_i, n_out,
+                                n_ch, n_s, stream);
+  if (e != 0) return e;
+  return launch_resample(y_r, y_i, hr, hi, coef, off, rr, ri, tr, ti, n_out,
+                         t_out, n_ch, stream);
 }

@@ -63,6 +63,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "cp_async.cuh"
+
 #define NTAPS 8
 #define NPOLY 6
 #define WPB 8      // channels (one warp each) per block
@@ -75,18 +77,6 @@ struct K2Polys {
 };
 
 __device__ __forceinline__ float sgnf(float v) { return v > 0.0f ? 1.0f : -1.0f; }
-
-__device__ __forceinline__ void cp_async4(float *smem, const float *gmem) {
-  unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
-               "l"(gmem));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-__device__ __forceinline__ void cp_async_wait0() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
 
 __device__ __forceinline__ void rot_by(float &c, float &s, float wc, float ws) {
   float cn = c * wc - s * ws;

@@ -74,10 +74,14 @@ def _declare(lib) -> None:
     lib.launch_mm_costas.argtypes = [P] * 12 + [I] * 4 + [F] * 9 + [P]
     # z(2), F, twiddles, Wt(2), y(2) | n_out, n_ch, n_s | stream
     lib.launch_fold_dft.argtypes = [P] * 8 + [I] * 3 + [P]
-    # x(2), hist(2), coef, off, y(2) | t_out, C, L, M, ntap, pad | stream
-    lib.launch_resample.argtypes = [P] * 8 + [I] * 6 + [P]
+    # x(2), hist(2), coef, off, y(2), tails(2) | t_in, t_out, C | stream
+    lib.launch_resample.argtypes = [P] * 10 + [I] * 3 + [P]
+    # z(2), F, twiddles, Wt(2), scratch y(2), hist(2), coef, off, out(2),
+    # tails(2) | n_out, n_ch, n_s, t_out | stream
+    lib.launch_fold_dft_resample.argtypes = [P] * 16 + [I] * 4 + [P]
     for name in ("launch_agc_fll_rrc", "launch_mm_costas",
-                 "launch_fold_dft", "launch_resample"):
+                 "launch_fold_dft", "launch_resample",
+                 "launch_fold_dft_resample"):
         getattr(lib, name).restype = ctypes.c_int
 
 
@@ -120,5 +124,8 @@ def check(err: int, name: str) -> None:
 
 
 def stream_of(t) -> int:
+    """The current CUDA stream of t's device, as a pointer: read directly,
+    without building the torch.cuda.Stream object that
+    torch.cuda.current_stream(...).cuda_stream builds on every call."""
     import torch
-    return torch.cuda.current_stream(t.device).cuda_stream
+    return torch._C._cuda_getCurrentRawStream(t.device.index)

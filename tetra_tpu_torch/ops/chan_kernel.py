@@ -5,11 +5,12 @@ Ports of the TPU kernels tetra_tpu/ops/chan_pallas.py:fold_dft (K4) and
 :fold_dft_resample (K3).  The CUDA source is csrc/chan.cu; the plain
 PyTorch versions are the channelizer's composition (fold by shifted
 slices, DFT by matmul against the f32 basis, sign flip; then the
-superblock-matrix resampler).  fold_dft_resample launches the K4 kernel
-through fold_dft and then the resample kernel, so one K3 call counts one
-launch on each wrapper's `launches`.  K4's kernel computes the DFT as a
-Stockham FFT for n_ch a power of two from 16 to 1024 (twiddle table from
-_tables) and as a matrix product against the W basis otherwise.
+superblock-matrix resampler).  fold_dft_resample makes one call into the
+library, which launches the K4 kernel and then the resample kernel; one K3
+call counts one launch on fold_dft's `launches` and one on its own.
+resample wraps the resample kernel alone.  K4's kernel computes the DFT as
+a Stockham FFT for n_ch a power of two from 16 to 1024 (twiddle table
+from _tables) and as a matrix product against the W basis otherwise.
 
 Layout: z is the hop-reshaped wideband block (n_out + 95, n_ch/2) float32;
 outputs are frame-major (rows = 50 kHz or 36 kHz frames, columns =
@@ -57,14 +58,22 @@ def _twiddles(n_ch: int) -> np.ndarray:
     return np.ascontiguousarray(w.view(np.float32).reshape(n_ch, 2))
 
 
+def _resample_tables(device):
+    """The resample's taps coef (18, 24) and offsets off (18,)."""
+    key = ("rs", str(device))
+    if key not in _CONST:
+        _CONST[key] = tuple(torch.from_numpy(a).to(device)
+                            for a in _resamp_taps())
+    return _CONST[key]
+
+
 def _tables(n_ch: int, device):
     """Fold weights F, twiddles, resample taps coef and offsets off."""
     key = (n_ch, str(device))
     if key not in _CONST:
-        coef, off = _resamp_taps()
-        arrs = (_fold_weights(CH._prototype(n_ch), n_ch), _twiddles(n_ch),
-                coef, off)
-        _CONST[key] = tuple(torch.from_numpy(a).to(device) for a in arrs)
+        arrs = (_fold_weights(CH._prototype(n_ch), n_ch), _twiddles(n_ch))
+        _CONST[key] = tuple(torch.from_numpy(a).to(device) for a in arrs) \
+            + _resample_tables(device)
     return _CONST[key]
 
 
@@ -121,22 +130,68 @@ def _check_z(zr, zi, n_ch: int):
     return n_out
 
 
+def _check_device(x, name: str) -> None:
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {x.device}")
+
+
+def _check_resample(hr, hi, device, C: int, t50: int, t36: int) -> None:
+    """The stream history's shape and the 18/25 rate: t50 a multiple of 25
+    and t36 = t50 * 18 / 25."""
+    pad = CH.RS_TAPS_PER_PHASE - 1
+    for h, nm in ((hr, "hr"), (hi, "hi")):
+        if h.dtype != torch.float32 or tuple(h.shape) != (pad, C) \
+                or not h.is_contiguous() or h.device != device:
+            raise ValueError(f"{nm}: need contiguous float32 ({pad}, {C})"
+                             f" on {device}")
+    if t50 % M_RS or t36 * M_RS != t50 * L_RS:
+        raise ValueError(f"t36={t36} does not match t50={t50} at 18/25")
+
+
+def _resample_outputs(t36: int, C: int, device, scratch: int = 0):
+    """One allocation (2, t36 + 23 + scratch, C), a plane each for re and
+    im: the (t36, C) rows, the next block's (23, C) history, then `scratch`
+    rows for the caller.  Returns the views (rr, ri, tr, ti) and the device
+    pointers of (rr, ri, tr, ti, scratch re, scratch im)."""
+    pad = CH.RS_TAPS_PER_PHASE - 1
+    n = t36 + pad + scratch
+    buf = torch.empty((2, n, C), dtype=torch.float32, device=device)
+    rows, hist, plane = (t36, C), (pad, C), n * C
+    views = (buf.as_strided(rows, (C, 1), 0),
+             buf.as_strided(rows, (C, 1), plane),
+             buf.as_strided(hist, (C, 1), t36 * C),
+             buf.as_strided(hist, (C, 1), plane + t36 * C))
+    base = buf.data_ptr()
+    at = (0, plane, t36 * C, plane + t36 * C, (t36 + pad) * C,
+          plane + (t36 + pad) * C)
+    return views, tuple(base + 4 * a for a in at)
+
+
+def _fold_args(zr, zi, n_ch: int):
+    """K4's launch arguments before y: z, fold weights, twiddles and the W
+    basis (null pointers on the FFT path); and n_s."""
+    F, tw, _, _ = _tables(n_ch, zr.device)
+    W = (None, None) if _fft_path(n_ch) else tuple(
+        w.data_ptr() for w in _dft_tables(n_ch, zr.device))
+    return (zr.data_ptr(), zi.data_ptr(), F.data_ptr(), tw.data_ptr(),
+            *W), int(F.shape[0])
+
+
+def _ptrs(*ts):
+    return tuple(t.data_ptr() for t in ts)
+
+
 def fold_dft(zr, zi, n_ch: int):
     """K4 on CUDA tensors, its plain version on CPU tensors."""
     if zr.device.type == "cpu":
         return fold_dft_plain(zr, zi, n_ch)
-    if zr.device.type != "cuda":
-        raise ValueError(f"fold_dft: unsupported device {zr.device}")
+    _check_device(zr, "fold_dft")
     n_out = _check_z(zr, zi, n_ch)
-    F, tw, _, _ = _tables(n_ch, zr.device)
-    W = (None, None) if _fft_path(n_ch) else tuple(
-        w.data_ptr() for w in _dft_tables(n_ch, zr.device))
+    args, n_s = _fold_args(zr, zi, n_ch)
     yr = torch.empty((n_out, n_ch), dtype=torch.float32, device=zr.device)
     yi = torch.empty_like(yr)
-    err = _build.load().launch_fold_dft(
-        zr.data_ptr(), zi.data_ptr(), F.data_ptr(), tw.data_ptr(), *W,
-        yr.data_ptr(), yi.data_ptr(), n_out, n_ch, int(F.shape[0]),
-        _build.stream_of(zr))
+    err = _build.load().launch_fold_dft(*args, *_ptrs(yr, yi), n_out, n_ch,
+                                        n_s, _build.stream_of(zr))
     _build.check(err, "fold_dft")
     fold_dft.launches += 1
     return yr, yi
@@ -145,31 +200,55 @@ def fold_dft(zr, zi, n_ch: int):
 fold_dft.launches = 0       # K4 (fold + DFT) kernel launches in this process
 
 
+def resample(yr, yi, hr, hi, t36: int):
+    """The streaming 18/25 resample alone on CUDA tensors (K3's second
+    kernel), channelizer._resample_stream_block_fm on CPU tensors.
+    yr/yi: (t50, C) 50 kHz rows; hr/hi: (23, C) stream history.  Returns
+    (t36, C) rr, ri and the next block's (23, C) history."""
+    if yr.device.type == "cpu":
+        return CH._resample_stream_block_fm(yr, yi, hr, hi, t36)
+    _check_device(yr, "resample")
+    for y, nm in ((yr, "yr"), (yi, "yi")):
+        if y.dtype != torch.float32 or y.dim() != 2 \
+                or not y.is_contiguous() or y.shape != yr.shape:
+            raise ValueError(f"{nm}: need contiguous float32 (t50, C)")
+    t50, C = yr.shape
+    _check_resample(hr, hi, yr.device, C, t50, t36)
+    out, ptrs = _resample_outputs(t36, C, yr.device)
+    coef, off = _resample_tables(yr.device)
+    err = _build.load().launch_resample(
+        *_ptrs(yr, yi, hr, hi, coef, off), *ptrs[:4], t50, t36, C,
+        _build.stream_of(yr))
+    _build.check(err, "resample")
+    resample.launches += 1
+    return out
+
+
+resample.launches = 0       # resample kernel launches by this wrapper
+
+
 def fold_dft_resample(zr, zi, hr, hi, n_ch: int, t36: int):
-    """K3 on CUDA tensors (the K4 kernel, then the resample kernel), its
-    plain version on CPU tensors."""
+    """K3 on CUDA tensors, its plain version on CPU tensors.  One C call
+    launches the K4 kernel into a scratch y and the resample kernel after
+    it; the resample kernel writes the next block's history.  One
+    allocation holds the outputs and y (the host time of a call is close
+    to the kernels' device time)."""
     if zr.device.type == "cpu":
         return fold_dft_resample_plain(zr, zi, hr, hi, n_ch, t36)
-    pad = CH.RS_TAPS_PER_PHASE - 1
-    for h, nm in ((hr, "hr"), (hi, "hi")):
-        if h.dtype != torch.float32 or tuple(h.shape) != (pad, n_ch) \
-                or not h.is_contiguous() or h.device != zr.device:
-            raise ValueError(f"{nm}: need contiguous float32 ({pad}, {n_ch})"
-                             f" on {zr.device}")
-    yr, yi = fold_dft(zr, zi, n_ch)
-    t50 = yr.shape[0]
-    if t36 * M_RS != t50 * L_RS:
-        raise ValueError(f"t36={t36} does not match t50={t50} at 18/25")
-    _, _, coef, off = _tables(n_ch, zr.device)
-    rr = torch.empty((t36, n_ch), dtype=torch.float32, device=zr.device)
-    ri = torch.empty_like(rr)
-    err = _build.load().launch_resample(
-        yr.data_ptr(), yi.data_ptr(), hr.data_ptr(), hi.data_ptr(),
-        coef.data_ptr(), off.data_ptr(), rr.data_ptr(), ri.data_ptr(), t36,
-        n_ch, L_RS, M_RS, CH.RS_TAPS_PER_PHASE, pad, _build.stream_of(zr))
-    _build.check(err, "resample")
+    _check_device(zr, "fold_dft_resample")
+    n_out = _check_z(zr, zi, n_ch)
+    _check_resample(hr, hi, zr.device, n_ch, n_out, t36)
+    args, n_s = _fold_args(zr, zi, n_ch)
+    coef, off = _resample_tables(zr.device)
+    # the 50 kHz rows between the two kernels go to the outputs' buffer
+    out, ptrs = _resample_outputs(t36, n_ch, zr.device, scratch=n_out)
+    err = _build.load().launch_fold_dft_resample(
+        *args, *ptrs[4:], *_ptrs(hr, hi, coef, off), *ptrs[:4], n_out, n_ch,
+        n_s, t36, _build.stream_of(zr))
+    _build.check(err, "fold_dft_resample")
+    fold_dft.launches += 1
     fold_dft_resample.launches += 1
-    return rr, ri, yr[-pad:].clone(), yi[-pad:].clone()
+    return out
 
 
 # K3's second kernel (the resample) launches in this process; its first is

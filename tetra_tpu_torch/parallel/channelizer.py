@@ -70,7 +70,8 @@ def _front_end_block(xr, xi, hr, hi, n_ch: int, t36: int):
     ri, hr2, hi2).
 
     Runs K3 (ops/chan_kernel.fold_dft_resample) on CUDA tensors: the K4
-    kernel (fold + DFT + flip), then the resample kernel, two launches.
+    kernel (fold + DFT + flip), then the resample kernel, which also
+    writes hr2/hi2; two launches behind one call.
     The reference forks on its 800-row Pallas tile; the port's kernels
     need only t50 % 25 == 0, so every block takes this one path."""
     from ..ops.chan_kernel import fold_dft_resample

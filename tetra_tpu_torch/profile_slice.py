@@ -10,8 +10,9 @@ fleet=True, wb_k=8) over 6 s of synthesized 8-cell air) and prints:
   synchronize on both sides), the typed FEC (synchronized likewise), the
   fleet engine's whole call (feed + FEC + dispatch) and the superblock;
 - a torch.profiler pass over one more superblock: device time by kernel
-  (device rows only; an aten row repeats its kernels' time) and the
-  device busy share, kernel time over the superblock's wall time.
+  (device rows only; an aten row repeats its kernels' time: the 20
+  largest, and the port's own kernels wherever they rank) and the device
+  busy share, kernel time over the superblock's wall time.
 
 The stage timers synchronize, so the stage sum runs slower than the
 untimed slice; the profiler pass runs slower again.
@@ -35,6 +36,9 @@ from .rx import receiver as R
 from .tx.wideband import cell_air, staged_windows
 
 N_CH, T50, WB_K, AIR_SECONDS, N_CELLS, WARM = 256, 6400, 8, 6.0, 8, 2
+# the port's kernels (csrc/*.cu), listed even outside the 20 largest rows
+KERNELS = ("agc_fll_rrc_kernel", "mm_costas_kernel", "fold_fft_kernel",
+           "fold_dft_kernel", "resample_kernel")
 
 
 def _timed(owner, name: str, key: str, sync: bool, acc: dict) -> None:
@@ -104,7 +108,10 @@ def main() -> None:
     busy = sum(_device_ms(e) for e in rows)
     print(f"profiled superblock: wall {wall_ms:.1f} ms, device kernel time "
           f"{busy:.1f} ms, busy share {busy / wall_ms:.3f}")
-    for e in rows[:20]:
+    # the 20 largest rows, then the port's own kernels below them
+    own = [e for e in rows[20:] if any(k + "(" in e.key or k + "<" in e.key
+                                       for k in KERNELS)]
+    for e in rows[:20] + own:
         print(f"  {_device_ms(e):9.3f} ms  x{e.count:5d}  {e.key[:70]}")
 
 
