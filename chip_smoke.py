@@ -14,23 +14,36 @@ Phases, each printing one line (any failure raises and exits non-zero):
 3. slice: the wideband fleet receiver TetraReceiver(wideband=256,
    t50=6400, fleet=True, wb_k=8, device="cuda") over ~6 s of synthesized
    8-cell air; gates: > 90% of channels locked, crc_ok > 3 x crc_fail after
-   warm-up, the cells' MCC/MNC decoded, and every kernel launched.
+   warm-up, the cells' MCC/MNC decoded, and every kernel launched;
+4. slice_nonfleet: the per-channel receiver as the CLI builds it,
+   TetraReceiver(wideband=256, t50=6400, events=False, device="cuda")
+   (device SYNC acquisition on by default at 256 channels), fed host cf32
+   chunks of the first 3.6 s of the same air, one 128 ms cycle a call:
+   K3, K1 and K2 in its full form on the card each cycle, host burst sync,
+   one FEC pass on the card, the native MAC dispatch.  It prints the rate,
+   rt_margin, wall ms per cycle and host-clock stage times per cycle over
+   the cycles after a 1.5 s warm-up; gates: the slice's three, > 90% of
+   channels passing quality_ok, a constellation on every locked channel
+   (K2's full form), K1-K4 launched and the device acquisition used.
 
 K3's row also carries its second kernel, the resample, timed alone on
 K4's output (resample_ms, 9 runs of 20 launches with min-max, and
 resample_device_ms) beside its own bound and its error against
 channelizer._resample_stream_block_fm;
-K3's and K4's rows carry device_ms, the sum of their kernels' device rows
-in one torch.profiler window over 20 launches, divided by 20, and
-host_ms, the wrapper's host time per call (an event time above device_ms
-is host_ms showing through).  The profiler windows run after the slice,
+Every kernel row carries device_ms, the sum of its kernels' device rows
+in one torch.profiler window over 20 launches, divided by 20 (K2's row in
+its lean form, with full_ms, full_device_ms and full_bound_ms for the
+full form the per-channel receiver launches); K3's and K4's rows also
+carry host_ms, the wrapper's host time per call (an event time above
+device_ms is host_ms showing through).  The profiler windows run after the slice,
 and the kernel lines are printed after them: launches right after a
 profiler session take longer on the host.
 
 Each kernel row carries its bound on the card (bound_ms: the larger of its
 bytes over the HBM rate and its operations over the FP32 rate, from this
 run's shapes; bound_by says which), its launches per superblock on the
-slice, and library_ms: the time of PyTorch library calls computing the same
+fleet slice, its launches on the per-channel slice
+(launches_nonfleet, one per 128 ms cycle), and library_ms: the time of PyTorch library calls computing the same
 function where they exist, else null.  For K4 two such yardsticks are
 timed, each a fold then one torch.fft.fft and the flip: the fold as an
 einsum over a strided view of the input, and as dilated depthwise conv1d
@@ -47,6 +60,7 @@ non-zero without one.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -63,6 +77,9 @@ from tetra_tpu_torch.ops import mm_kernel as MK
 from tetra_tpu_torch.parallel import channelizer as CH
 from tetra_tpu_torch.profile_slice import _device_ms
 from tetra_tpu_torch.rx import demod_fast as DF
+from tetra_tpu_torch.rx import fec as FEC
+from tetra_tpu_torch.rx import lower_mac as LM
+from tetra_tpu_torch.rx import receiver as R
 from tetra_tpu_torch.rx.receiver import TetraReceiver
 from tetra_tpu_torch.tx.wideband import (cell_air, heterogeneous_fleet_iq,
                                          staged_windows)
@@ -73,6 +90,8 @@ WB_K = 8
 WARM_BLOCKS = 9                       # demod blocks before the K1/K2 check
 AIR_SECONDS = 6.0
 N_CELLS = 8
+NONFLEET_SECONDS = 3.6                # air the per-channel slice is fed
+WARM_SECONDS = 1.5                    # FLL pull-in + scrambling acquisition
 
 # limits of kernel vs plain on identical inputs (float32, different
 # summation orders and cosf/sinf/rsqrtf vs the CPU-style library calls)
@@ -324,10 +343,14 @@ def k3_library(k4_label: str, zr, zi, hr, hi, n_ch: int, t36: int):
     return CH._resample_stream_block_fm(yr, yi, hr, hi, t36)
 
 
-def phase_demod_kernels(dev) -> list[dict]:
+def phase_demod_kernels(dev) -> tuple[list[dict], list]:
     """K1 and K2 against their plain versions on a heterogeneous fleet:
     WARM_BLOCKS blocks (~1.2 s of air: FLL pull-in and timing lock) run
-    through the kernel chain, then the next block's inputs go to both."""
+    through the kernel chain, then the next block's inputs go to both.
+    K2 is timed in its lean form (the fleet slice's) and its full form
+    (the per-channel slice's).  Returns the rows and the profiler jobs
+    (row, key, fn) that phase_device_times runs after every timed
+    phase."""
     xr, xi = heterogeneous_fleet_iq(WARM_BLOCKS + 1, C_DEMOD, T_DEMOD)
     state = DF.demod_init(C_DEMOD, dev)
     n_chunks = DF.n_chunks_for(T_DEMOD)
@@ -396,6 +419,7 @@ def phase_demod_kernels(dev) -> list[dict]:
               f"K2 channel {c} differs by > {TOL_K2_CLOSE} from group {g} "
               f"without a leak switch before it: {stepped[c]}")
     lean = dict(kw, emit_syms=False)
+    S = n_chunks * DF.K_SYM
     rows.append(dict(
         name="K2 mm_costas", max_abs_err=err_sym,
         channels_identical=share, first_difference=first,
@@ -403,9 +427,18 @@ def phase_demod_kernels(dev) -> list[dict]:
         ms=median_ms(lambda: MK.mm_costas(*args2, **lean), 20),
         plain_ms=median_ms(
             lambda: MK.mm_costas_plain(*args2, **lean), 1, 3),
+        full_ms=median_ms(lambda: MK.mm_costas(*args2, **kw), 20),
+        full_plain_ms=median_ms(
+            lambda: MK.mm_costas_plain(*args2, **kw), 1, 3),
+        full_bound_ms=k2_work(T_DEMOD, C_DEMOD, S, emit_syms=True)[
+            "bound_ms"],
         library_ms=None,
-        **k2_work(T_DEMOD, C_DEMOD, n_chunks * DF.K_SYM, emit_syms=False)))
-    return rows
+        **k2_work(T_DEMOD, C_DEMOD, S, emit_syms=False)))
+    k1, k2 = rows
+    jobs = [(k1, "device_ms", lambda: DK.agc_fll_rrc(*args1)),
+            (k2, "device_ms", lambda: MK.mm_costas(*args2, **lean)),
+            (k2, "full_device_ms", lambda: MK.mm_costas(*args2, **kw))]
+    return rows, jobs
 
 
 def phase_front_kernels(dev, wide: np.ndarray) -> tuple[list[dict], list]:
@@ -576,6 +609,125 @@ def phase_slice(dev, wide: np.ndarray) -> dict:
                 right_cell=right_cell, launches=launches)
 
 
+class StageClock:
+    """Host-clock time of named stages: wraps owner.name so each call adds
+    its time to its stage, and puts every original back on close.  No
+    synchronize is added: a stage that ends in a device fetch includes the
+    device work it waits for."""
+
+    def __init__(self):
+        self.sec = {}
+        self._saved = []
+
+    def wrap(self, owner, name: str, stage: str) -> None:
+        fn = getattr(owner, name)
+        self._saved.append((owner, name, fn))
+        self.sec.setdefault(stage, 0.0)
+
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                self.sec[stage] += time.perf_counter() - t0
+
+        setattr(owner, name, timed)
+
+    def close(self) -> None:
+        for owner, name, fn in reversed(self._saved):
+            setattr(owner, name, fn)
+        self._saved = []
+
+
+def phase_slice_nonfleet(dev, wide: np.ndarray, n_ch: int = N_CH) -> dict:
+    """The per-channel receiver as the CLI builds it, fed host cf32 chunks
+    of one cycle's advance (the first window primed), timed per cycle after
+    WARM_SECONDS of warm-up."""
+    rx = TetraReceiver(wideband=n_ch, t50=T50, events=False, device=dev)
+    check(rx.fleet is None and rx.device_acquire,
+          "the CLI's receiver is per-channel with device acquisition")
+    adv, wl = rx._wb["advance"], rx._wb["wide_len"]
+    fs = n_ch * 25_000
+    n_cyc = int((NONFLEET_SECONDS * fs - (wl - adv)) // adv)
+    warm = int(WARM_SECONDS * fs / adv) + 1
+    check(n_cyc - warm >= math.ceil(2.0 * fs / adv),
+          f"{n_cyc} cycles, {warm} warm-up: under 2 s timed")
+    chunks = [wide[:wl - adv]] + [wide[wl - adv + k * adv:wl + k * adv]
+                                  for k in range(n_cyc)]
+    wrappers = {"K1 agc_fll_rrc": DK.agc_fll_rrc, "K2 mm_costas": MK.mm_costas,
+                "K3 fold_dft_resample": CK.fold_dft_resample,
+                "K4 fold_dft": CK.fold_dft}
+    for w in wrappers.values():
+        w.launches = 0
+    rx.process_wideband(chunks[0])
+    for k in range(1, warm + 1):
+        rx.process_wideband(chunks[k])
+    ok0 = sum(rx.crc_counts(c)[0] for c in range(n_ch))
+    fail0 = sum(rx.crc_counts(c)[1] for c in range(n_ch))
+    clock, fec_clock = StageClock(), StageClock()
+    clock.wrap(R, "_wideband_step", "device step + fetch")
+    clock.wrap(TetraReceiver, "_fetch", "device step + fetch")
+    clock.wrap(TetraReceiver, "_sync_bursts", "burst sync + device acquire")
+    clock.wrap(LM, "decode_bursts_multi", "FEC")
+    clock.wrap(LM.LowerMac, "_dispatch_decoded", "MAC dispatch")
+    # inside the FEC stage: the fused decode call (its rows built, moved to
+    # the card, decoded and fetched) and, inside that, the decode's torch
+    # ops as the host issues them
+    fec_clock.wrap(FEC, "decode_blocks_mixed", "decode_blocks_mixed")
+    fec_clock.wrap(FEC, "_decode_mixed_core", "decode ops issued")
+    walls = []
+    try:
+        for k in range(warm + 1, n_cyc + 1):
+            ts = time.perf_counter()
+            rx.process_wideband(chunks[k])
+            walls.append(time.perf_counter() - ts)
+    finally:
+        fec_clock.close()
+        clock.close()
+    launches = {name: w.launches for name, w in wrappers.items()}
+    n_locked = sum(rx.locked(c) for c in range(n_ch))
+    oks = sum(rx.crc_counts(c)[0] for c in range(n_ch)) - ok0
+    fails = sum(rx.crc_counts(c)[1] for c in range(n_ch)) - fail0
+    right_cell = sum(rx.display(c).mcc == 262
+                     and rx.display(c).mnc == 100 + c % N_CELLS
+                     for c in range(n_ch))
+    quality = sum(rx.quality_ok(c) for c in range(n_ch))
+    const = [len(rx.constellation(c)[0]) for c in range(n_ch)
+             if rx.locked(c)]
+    check(n_locked > 0.9 * n_ch, f"only {n_locked}/{n_ch} channels locked")
+    check(oks > 3 * fails and oks > 0, f"crc ok {oks} vs fail {fails}")
+    check(right_cell > 0.9 * n_ch, f"only {right_cell} channels show their "
+          f"cell's MCC/MNC")
+    check(quality > 0.9 * n_ch, f"only {quality}/{n_ch} channels pass "
+          f"quality_ok")
+    check(all(n > 0 for n in const),
+          f"{sum(n == 0 for n in const)} locked channels show no "
+          f"constellation (K2's full form)")
+    for name, n in launches.items():
+        check(n > 0, f"{name} was not launched on the per-channel path")
+    check(rx.acquire_scans > 0, "device_acquire_scan never ran")
+    air = adv / fs
+    n_t = len(walls)
+    stage_ms = {k: v * 1e3 / n_t for k, v in clock.sec.items()}
+    stage_ms["rest (framing, upload, demod host work)"] = \
+        float(np.mean(walls)) * 1e3 - sum(stage_ms.values())
+    fec_ms = {k: v * 1e3 / n_t for k, v in fec_clock.sec.items()}
+    return dict(channels=n_ch, t50=T50, cycles_driven=n_cyc,
+                cycles_timed=n_t, cycle_air_ms=air * 1e3,
+                wideband_msps=n_t * adv / sum(walls) / 1e6,
+                rt_margin=air / float(np.mean(walls)),
+                cycle_wall_ms=float(np.mean(walls)) * 1e3,
+                cycle_wall_min_ms=min(walls) * 1e3,
+                cycle_wall_max_ms=max(walls) * 1e3,
+                stage_ms_per_cycle=stage_ms, fec_ms_per_cycle=fec_ms,
+                locked=n_locked, crc_ok=oks, crc_fail=fails,
+                right_cell=right_cell, quality_ok=quality,
+                constellation_channels=len(const),
+                acquire_scans=rx.acquire_scans, launches=launches,
+                launches_per_cycle={k: v / n_cyc
+                                    for k, v in launches.items()})
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device")
@@ -591,12 +743,14 @@ def main() -> None:
     print(f"fixture: {len(wide)} wideband samples "
           f"({len(wide) / (N_CH * 25_000):.2f} s of air) in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    demod = phase_demod_kernels(dev)
-    front, jobs = phase_front_kernels(dev, wide)
+    demod, jobs = phase_demod_kernels(dev)
+    front, front_jobs = phase_front_kernels(dev, wide)
     rows = demod + front
     sl = phase_slice(dev, wide)
     print(f"slice: gpu=[{gpu}] " + json.dumps(sl), flush=True)
-    phase_device_times(jobs)
+    nf = phase_slice_nonfleet(dev, wide)
+    print(f"slice_nonfleet: gpu=[{gpu}] " + json.dumps(nf), flush=True)
+    phase_device_times(jobs + front_jobs)
     for r in rows:
         print("kernel: " + json.dumps(r), flush=True)
     kernels = [dict(name=r["name"], route="cuda", source=SOURCES[r["name"]],
@@ -604,11 +758,15 @@ def main() -> None:
                     launches=sl["launches"][r["name"]],
                     launches_per_superblock=sl["launches"][r["name"]]
                     / sl["superblocks_driven"],
+                    launches_nonfleet=nf["launches"][r["name"]],
+                    launches_per_cycle_nonfleet=nf["launches_per_cycle"][
+                        r["name"]],
                     max_abs_err=r["max_abs_err"], ms=r["ms"],
                     plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                     bound_by=r["bound_by"], library_ms=r["library_ms"],
-                    **{k: r[k] for k in ("device_ms", "resample_ms",
-                                         "resample_device_ms",
+                    **{k: r[k] for k in ("device_ms", "full_ms",
+                                         "full_device_ms", "full_bound_ms",
+                                         "resample_ms", "resample_device_ms",
                                          "resample_bound_ms") if k in r})
                for r in rows]
     print(gpu)

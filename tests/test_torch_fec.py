@@ -12,6 +12,7 @@ from tetra_tpu.rx import viterbi as JV
 from tetra_tpu.tx import fec_enc
 from tetra_tpu_torch.rx import fec as TF
 from tetra_tpu_torch.rx import viterbi as TV
+from tests.test_torch_receiver_channel import one_torch_thread  # noqa: F401
 
 SCR = P.scramb_get_init(262, 1234, 7)
 TYPES = ((P.TPSAP_T_SB1, 120), (P.TPSAP_T_BBK, 30), (P.TPSAP_T_SB2, 216),
@@ -105,3 +106,76 @@ def test_crc_and_rm_match_jax():
     ji, jok = JF.rm3014_decode(jnp.asarray(cw))
     np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
     np.testing.assert_array_equal(tok.numpy(), np.asarray(jok))
+
+
+ALL_TYPES = (P.TPSAP_T_SB1, P.TPSAP_T_SB2, P.TPSAP_T_NDB, P.TPSAP_T_SCH_HU,
+             P.TPSAP_T_SCH_F, P.TPSAP_T_BBK)
+
+
+def _typed_rows(bt, n, seed):
+    """n type-5 rows of block type bt: random, clean encoded under two
+    cells' codes, and encoded with 1 or 5 flipped bits."""
+    rng = np.random.default_rng(seed)
+    _, t345, _, t1, _, _ = P.BLK_PARAMS[bt]
+    codes = (SCR, P.scramb_get_init(901, 42, 11))
+    rows, scr = [], []
+    for i in range(n):
+        s = codes[i % 2]
+        if i % 4 == 0:
+            bits = rng.integers(0, 2, t345).astype(np.uint8)
+        else:
+            bits = fec_enc.encode_block(
+                rng.integers(0, 2, t1).astype(np.uint8), bt,
+                P.SCRAMB_INIT if bt == P.TPSAP_T_SB1 else s)
+            if i % 4 == 3:
+                bits[rng.choice(t345, 1 + 4 * (i % 8 == 7),
+                                replace=False)] ^= 1
+        rows.append(bits)
+        scr.append(s)
+    return np.stack(rows), scr
+
+
+@pytest.mark.parametrize("bt", ALL_TYPES)
+def test_decode_block_matches_jax(bt):
+    """One scrambling code for the batch, and one per row."""
+    t5, scr = _typed_rows(bt, 12, bt)
+    for code in (SCR, scr):
+        want_t1, want_ok = JF.decode_block(jnp.asarray(t5), bt, code)
+        got_t1, got_ok = TF.decode_block(torch.from_numpy(t5), bt, code)
+        np.testing.assert_array_equal(got_ok.numpy(), np.asarray(want_ok))
+        np.testing.assert_array_equal(got_t1.numpy(), np.asarray(want_t1))
+        assert got_t1.shape == (12, P.BLK_PARAMS[bt][3])
+    assert 0 < int(got_ok.sum()) < 12
+
+
+def test_descramble_and_deinterleave_match_jax():
+    bits = np.random.default_rng(2).integers(0, 2, (5, 216)).astype(np.uint8)
+    np.testing.assert_array_equal(
+        TF.descramble(torch.from_numpy(bits), SCR).numpy(),
+        np.asarray(JF.descramble(jnp.asarray(bits), SCR)))
+    np.testing.assert_array_equal(
+        TF.deinterleave(torch.from_numpy(bits), 101).numpy(),
+        np.asarray(JF.deinterleave(jnp.asarray(bits), 101)))
+
+
+@pytest.mark.parametrize("with_hu", [False, True])
+def test_decode_blocks_mixed_matches_jax(with_hu):
+    """Every downlink type in one batch with per-row codes (SB1 rows take
+    SCRAMB_INIT whatever code they carry); with an SCH/HU row the batch
+    takes the per-type fallback."""
+    blocks = []
+    for bt in ALL_TYPES:
+        if bt == P.TPSAP_T_SCH_HU and not with_hu:
+            continue
+        t5, scr = _typed_rows(bt, 6, 10 + bt)
+        blocks += [(bt, r, s) for r, s in zip(t5, scr)]
+    order = np.random.default_rng(4).permutation(len(blocks))
+    blocks = [blocks[i] for i in order]
+    want = JF.decode_blocks_mixed(blocks)
+    got = TF.decode_blocks_mixed(blocks, "cpu")
+    assert len(got) == len(want)
+    for (gt, gok), (wt, wok), (bt, _, _) in zip(got, want, blocks):
+        assert gok == wok and isinstance(gok, bool)
+        np.testing.assert_array_equal(gt, np.asarray(wt))
+        assert len(gt) == P.BLK_PARAMS[bt][3]
+    assert 0 < sum(ok for _, ok in got) < len(got)

@@ -48,7 +48,9 @@ def test_port_covers_the_slice_layout():
     for m in ("core.fir", "rx.demod", "rx.demod_fast", "rx.viterbi",
               "rx.fec", "rx.fleet", "rx.receiver", "ops._build",
               "ops.demod_kernel", "ops.mm_kernel", "ops.chan_kernel",
-              "parallel.channelizer", "tx.wideband", "convert"):
+              "parallel.channelizer", "tx.wideband", "convert",
+              "rx.burst_sync", "rx.lower_mac", "rx.upper_mac", "rx.mac_pdu",
+              "rx.llc", "rx.mle", "rx.native_mac", "ops.train_corr"):
         assert "tetra_tpu_torch." + m in mods, m
 
 
@@ -69,13 +71,26 @@ class _Blocked:
 sys.meta_path.insert(0, _Blocked())
 for m in sys.argv[1:]:
     importlib.import_module(m)
-from tetra_tpu_torch.rx import fleet
+import numpy as np
+from tetra_tpu_torch.rx import fleet, native_mac
+from tetra_tpu_torch.rx.burst_sync import BurstSync
+from tetra_tpu_torch.rx.lower_mac import LowerMac
+from tetra_tpu_torch.tx.cell import CellConfig, downlink_bits
 from tetra_tpu_torch.tx.wideband import cell_air
 wide = cell_air(4, 0.1, 2)
 assert wide.dtype.name == 'complex64' and wide.ndim == 1 and len(wide) > 0
 pkg = os.path.dirname(os.path.abspath(fleet.__file__ + '/..'))
-for src in (fleet._SRC, fleet._SRC_DEP):
+for src in (fleet._SRC, fleet._SRC_DEP, native_mac._SRC):
     assert os.path.commonpath([os.path.abspath(src), pkg]) == pkg, src
+# one burst-sync + lower/upper MAC decode (native dispatch) of a cell
+bits, _ = downlink_bits(CellConfig(mcc=262, mnc=77, cc=5), 160)
+mac = LowerMac(device='cpu')
+mac.upper.events_enabled = False
+sync = BurstSync(phy=mac.phy)
+for i in range(0, len(bits), 4608):
+    mac.process_bursts(sync.feed(bits[i:i + 4608]))
+assert mac.upper.display.mnc == 77 and mac.crc_oks > 100, mac.crc_oks
+assert isinstance(mac.upper.__dict__['_native'], native_mac.NativeMacHandle)
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'tetra_tpu'))
 assert not bad, bad
@@ -85,8 +100,9 @@ print('isolated', len(sys.argv) - 1, len(wide))
 
 def test_runs_without_jax_or_tetra_tpu():
     """With jax and the JAX package both blocked: every port module and
-    chip_smoke import, the cell_air fixture runs (4 channels, 0.1 s), and
-    the fleet engine's C++ sources lie inside tetra_tpu_torch/."""
+    chip_smoke import, the cell_air fixture runs (4 channels, 0.1 s), the
+    C++ sources of the fleet engine and of the native MAC lie inside
+    tetra_tpu_torch/, and a BurstSync + LowerMac decode of a cell runs."""
     mods = _modules() + ["chip_smoke"]
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = ROOT

@@ -21,6 +21,7 @@ from tetra_tpu.tx import cell
 from tetra_tpu_torch.rx.receiver import TetraReceiver
 from tetra_tpu_torch.tx.wideband import (heterogeneous_fleet_iq,
                                          synthesize_wideband)
+from tests.test_torch_receiver_channel import one_torch_thread  # noqa: F401
 
 N = 8
 CRC_BOUND = 2
@@ -69,6 +70,10 @@ def test_wideband_fleet_matches_jax(wide):
         assert got.locked(c), c
         assert got.display(c).mnc == 100 + c % 2, c
         assert got.crc_counts(c)[0] > 10 * got.crc_counts(c)[1], c
+        # the lean superblock keeps no symbols, in both packages
+        assert len(got.constellation(c)[0]) == len(ref.constellation(c)[0]) \
+            == 0
+        assert got.quality_ok(c) == ref.quality_ok(c), c
     np.testing.assert_allclose(got.sym_quality, ref.sym_quality, atol=2e-3)
 
 
@@ -130,14 +135,56 @@ def test_narrowband_fleet_matches_jax():
         assert got.display(c).as_dict() == ref.display(c).as_dict(), c
         (oa, fa), (ob, fb) = got.crc_counts(c), ref.crc_counts(c)
         assert abs(oa - ob) + abs(fa - fb) <= CRC_BOUND, c
+        # the last block's symbols: as many valid ones in both packages
+        (gr, gi), (rr, ri) = got.constellation(c, n=100), ref.constellation(
+            c, n=100)
+        assert len(gr) == len(gi) == len(rr) == 100, c
+        assert got.quality_ok(c) == ref.quality_ok(c), c
     assert sum(got.crc_counts(c)[0] for c in range(4)) > 0
 
 
-@pytest.mark.parametrize("kw", [dict(fleet=False), dict(fleet=True,
-                                                         mode="exact")])
-def test_unported_modes_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+@pytest.mark.parametrize("kw,item", [
+    (dict(mode="ff"), "item 14"),
+    (dict(fleet=True, mode="exact"), "item 12"),
+    (dict(mac_workers=2), "item 17"),
+    (dict(keystore="keys.txt"), "item 17"),
+    (dict(voice=True), "item 13"),
+    (dict(fleet=True, wideband=8, wb_k=2, wb_pipeline=True), "Not ported"),
+])
+def test_unported_modes_raise(kw, item):
+    with pytest.raises(NotImplementedError, match="ROADMAP.*" + item):
         TetraReceiver(channels=2, device="cpu", **kw)
+
+
+def test_reference_call_forms():
+    """The constructor calls of the reference's CLI (apps/tetra_rx.py: the
+    default per-channel receiver and --fleet with --link-profile), of its
+    bench_e2e (events=False, wb_pipeline=False/None) and of its README
+    (TetraReceiver(channels=16)) run on the port."""
+    cb = lambda time, type4: None
+    rx = TetraReceiver(16, voice_cb=cb, mode="fast", events=False,
+                       wideband=0, device="cpu")
+    assert rx.fleet is None and not rx.device_acquire
+    assert all(m.voice_cb is cb and not m.upper.events_enabled
+               for m in rx.mac)
+    rx = TetraReceiver(64, voice_cb=cb, mode="fast", events=True,
+                       wideband=64, device="cpu")
+    assert rx.device_acquire and rx.channels == 64
+    assert rx.mac[0].upper.events_enabled
+    for profile in ("tunnel", "pcie"):
+        rx = TetraReceiver(8, voice_cb=None, mode="fast", events=False,
+                           wideband=8, fleet=True, wb_k=2,
+                           link_profile=profile, device="cpu")
+        assert rx.fleet is not None and rx.link_profile == profile
+    for pipeline in (False, None):
+        TetraReceiver(wideband=8, t50=1600, fleet=True, events=False, wb_k=2,
+                      wb_pipeline=pipeline, device="cpu")
+    # events=True is ignored in fleet mode, as the reference's fleet
+    # implies events=False
+    TetraReceiver(wideband=8, fleet=True, events=True, device="cpu")
+    assert TetraReceiver(channels=16, device="cpu").channels == 16
+    with pytest.raises(ValueError, match="link_profile"):
+        TetraReceiver(channels=2, link_profile="wifi", device="cpu")
 
 
 def test_device_is_required():

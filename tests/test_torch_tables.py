@@ -13,7 +13,9 @@ from tetra_tpu.rx import demod as JD
 from tetra_tpu.rx import demod_fast as JDF
 from tetra_tpu.rx import fec as JFEC
 from tetra_tpu.rx import viterbi as JV
+from tetra_tpu.ops import train_corr as JTC
 from tetra_tpu_torch.ops import chan_kernel as CK
+from tetra_tpu_torch.ops import train_corr as TTC
 from tetra_tpu_torch.ops import demod_kernel as DK
 from tetra_tpu_torch.parallel import channelizer as TCH
 from tetra_tpu_torch.rx import demod as TD
@@ -67,6 +69,9 @@ TABLES = {
                     lambda: JFEC._rm_codebook_pm1()),
     "deinterleave_216": (lambda: TFEC._deinterleave_idx(216, 101),
                          lambda: JFEC._deinterleave_idx(216, 101)),
+    "train_seq_kernels": (
+        lambda: np.concatenate([k for _, _, k in TTC._seq_kernels()]),
+        lambda: np.concatenate([k for _, _, k in JTC._seq_kernels()])),
 }
 
 
@@ -291,4 +296,66 @@ def test_native_source_copy_byte_equal(src):
         == os.path.join(ROOT, "tetra_tpu_torch")
     with open(port, "rb") as a, open(os.path.join(
             ROOT, "tetra_tpu", "rx", "native", src), "rb") as b:
+        assert a.read() == b.read()
+
+
+# ---------------------------------------------------------------------------
+# The host copies of the per-channel receiver's bit pipeline.
+
+from tetra_tpu.rx import burst_sync as JBS
+from tetra_tpu.rx import llc as JLLC
+from tetra_tpu.rx import mac_pdu as JMAC
+from tetra_tpu.rx import mle as JMLE
+from tetra_tpu.rx import upper_mac as JUM
+from tetra_tpu_torch.rx import burst_sync as TBS
+from tetra_tpu_torch.rx import llc as TLLC
+from tetra_tpu_torch.rx import mac_pdu as TMAC
+from tetra_tpu_torch.rx import mle as TMLE
+from tetra_tpu_torch.rx import upper_mac as TUM
+
+HOST_COPIES = {"mac_pdu": (TMAC, JMAC), "llc": (TLLC, JLLC),
+               "mle": (TMLE, JMLE), "upper_mac": (TUM, JUM),
+               "burst_sync": (TBS, JBS), "native_mac": (TNM, JNM)}
+
+
+def _constant_names(mod):
+    """Module-level upper-case names bound to data (not modules, classes,
+    functions, or the native module's paths and lazily loaded handles)."""
+    skip = {"_NATIVE_MAC_MOD", "_DIR", "_SRC", "_SO"}
+    return sorted(n for n, v in vars(mod).items()
+                  if n.lstrip("_")[:1].isupper() and n.upper() == n
+                  and n not in skip and not callable(v)
+                  and type(v).__name__ != "module")
+
+
+HOST_CONSTS = [(m, n) for m, (_, j) in sorted(HOST_COPIES.items())
+               for n in _constant_names(j)]
+
+
+@pytest.mark.parametrize("module,name", HOST_CONSTS)
+def test_host_copy_constant_equal(module, name):
+    port, ref = HOST_COPIES[module]
+    _same(getattr(port, name), getattr(ref, name))
+
+
+@pytest.mark.parametrize("module", sorted(HOST_COPIES))
+def test_host_copy_names_and_dataclasses_equal(module):
+    """The same constants, and every dataclass with the same fields and
+    defaults (UpperMac's crypto_state aside: the port has no crypto yet)."""
+    import dataclasses
+    port, ref = HOST_COPIES[module]
+    assert _constant_names(port) == _constant_names(ref)
+    for n, v in vars(ref).items():
+        if dataclasses.is_dataclass(v) and v.__module__ == ref.__name__:
+            fields = lambda cls: [
+                (f.name, repr(f.default)) for f in dataclasses.fields(cls)
+                if f.name != "crypto_state"]
+            assert fields(getattr(port, n)) == fields(v), n
+
+
+@pytest.mark.parametrize("module", ["mac_pdu", "llc", "mle"])
+def test_host_parser_copy_byte_equal(module):
+    """The PDU parsers are verbatim copies."""
+    port, ref = HOST_COPIES[module]
+    with open(port.__file__, "rb") as a, open(ref.__file__, "rb") as b:
         assert a.read() == b.read()

@@ -10,6 +10,9 @@ file.  Output goes to tetra_tpu_torch/build/ (listed in .gitignore).
 Each launcher takes device pointers and the CUDA stream as void*, launches
 on that stream without synchronising, and returns the cudaError_t of the
 launch; `check` raises on a non-zero code.
+
+host_library builds the host C++ libraries (csrc/host/: the fleet engine,
+the native MAC core) with g++ the same way.
 """
 
 from __future__ import annotations
@@ -115,6 +118,31 @@ def load():
         _declare(lib)
         _lib = lib
         return lib
+
+
+def host_library(stem: str, srcs: list[str], flags: list[str]) -> str:
+    """Path of the host (g++) shared library built from srcs[0], which
+    includes srcs[1:].  It is built on first use under a name hashed from
+    the sources and flags, written under a temporary name and moved into
+    place as the CUDA library is.  A failed build raises."""
+    h = hashlib.sha256()
+    for src in srcs:
+        with open(src, "rb") as f:
+            h.update(f.read())
+    h.update(" ".join(flags).encode())
+    so = os.path.join(BUILD_DIR, f"lib{stem}_{h.hexdigest()[:16]}.so")
+    if not os.path.exists(so):
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        try:
+            subprocess.run(["g++", "-O2", "-std=c++17", "-shared", "-fPIC"]
+                           + flags + ["-o", tmp, srcs[0]], check=True)
+            os.replace(tmp, so)
+        finally:
+            if os.path.exists(tmp):
+                os.remove(tmp)
+    return so
 
 
 def check(err: int, name: str) -> None:

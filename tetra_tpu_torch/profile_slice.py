@@ -1,9 +1,10 @@
-"""Where the wideband fleet slice spends its time on one CUDA device.
+"""Where the wideband slices spend their time on one CUDA device.
 
     python3 -m tetra_tpu_torch.profile_slice
 
-Runs the slice of chip_smoke.py (TetraReceiver(wideband=256, t50=6400,
-fleet=True, wb_k=8) over 6 s of synthesized 8-cell air) and prints:
+Runs the fleet slice of chip_smoke.py (TetraReceiver(wideband=256,
+t50=6400, fleet=True, wb_k=8) over 6 s of synthesized 8-cell air) and
+prints:
 
 - host-clock time per superblock of each stage, over the superblocks after
   two warm-up ones: the device step (front end + K1 + K2 + packing, with a
@@ -16,6 +17,11 @@ fleet=True, wb_k=8) over 6 s of synthesized 8-cell air) and prints:
 
 The stage timers synchronize, so the stage sum runs slower than the
 untimed slice; the profiler pass runs slower again.
+
+Then the same torch.profiler pass over two 128 ms cycles of chip_smoke.py's
+per-channel slice (TetraReceiver(wideband=256, t50=6400, events=False),
+fed host cf32 one cycle a call after 1.5 s of warm-up); its host-clock
+stage times are chip_smoke.py's.
 """
 
 from __future__ import annotations
@@ -76,8 +82,9 @@ def main() -> None:
                          text=True, check=True).stdout.strip())
     rx = R.TetraReceiver(wideband=N_CH, t50=T50, fleet=True, wb_k=WB_K,
                          device=dev)
-    staged = staged_windows(cell_air(N_CH, AIR_SECONDS, N_CELLS),
-                            rx._wb["advance"], rx._wb["wide_len"], WB_K, dev)
+    wide = cell_air(N_CH, AIR_SECONDS, N_CELLS)
+    staged = staged_windows(wide, rx._wb["advance"], rx._wb["wide_len"],
+                            WB_K, dev)
     for s in range(WARM):
         rx.process_wideband_staged(*staged[s])
     torch.cuda.synchronize()
@@ -95,10 +102,30 @@ def main() -> None:
         print(f"stage {key}: {1e3 * sec / len(timed):.2f} ms/superblock "
               f"over {len(timed)}")
 
+    _profile("profiled superblock",
+             lambda: rx.process_wideband_staged(*staged[-1]))
+
+    # the per-channel slice: one cycle a call
+    rx = R.TetraReceiver(wideband=N_CH, t50=T50, events=False, device=dev)
+    adv, wl = rx._wb["advance"], rx._wb["wide_len"]
+    warm = int(1.5 * N_CH * 25_000 / adv) + 1
+    rx.process_wideband(wide[:wl - adv])
+    for k in range(warm):
+        rx.process_wideband(wide[wl - adv + k * adv:wl + k * adv])
+    k = warm
+    _profile("profiled per-channel cycles (2)",
+             lambda: [rx.process_wideband(wide[wl - adv + j * adv:
+                                               wl + j * adv])
+                      for j in (k, k + 1)])
+
+
+def _profile(label: str, fn) -> None:
+    """One torch.profiler window around fn: its wall time, the device
+    kernel time and busy share, and the largest device rows."""
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        rx.process_wideband_staged(*staged[-1])
+        fn()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     rows = [e for e in prof.key_averages()
@@ -106,7 +133,7 @@ def main() -> None:
             and _device_ms(e) > 0]
     rows.sort(key=lambda e: -_device_ms(e))
     busy = sum(_device_ms(e) for e in rows)
-    print(f"profiled superblock: wall {wall_ms:.1f} ms, device kernel time "
+    print(f"{label}: wall {wall_ms:.1f} ms, device kernel time "
           f"{busy:.1f} ms, busy share {busy / wall_ms:.3f}")
     # the 20 largest rows, then the port's own kernels below them
     own = [e for e in rows[20:] if any(k + "(" in e.key or k + "<" in e.key

@@ -1,9 +1,9 @@
 """Demod filter tables and loop constants (port of tetra_tpu/rx/demod.py).
 
-Only the pieces the chunked production chain (rx/demod_fast.py) reads are
-ported here: the RRC / band-edge / interpolator tables and the reference
-loop constants.  The per-sample parity chain is not ported yet (ROADMAP
-Queue 1).
+Only the pieces the chunked production chain (rx/demod_fast.py) and the
+per-channel receiver read are ported here: the RRC / band-edge /
+interpolator tables, the reference loop constants and dibits_to_bits.  The
+per-sample parity chain is not ported yet (ROADMAP Queue 1 item 12).
 """
 
 from __future__ import annotations
@@ -54,3 +54,12 @@ def _tables():
         bank = taps_mod.interp_bank(P.INTERP_PHASE_COUNT, P.INTERP_TAP_COUNT)
         _TABLES = (rrc, be, bank)
     return _TABLES
+
+
+def dibits_to_bits(dibits: np.ndarray) -> np.ndarray:
+    """Unpack dibit stream to bits, MSB first (bit_unpacker.cpp:4-11)."""
+    dibits = np.asarray(dibits, np.uint8)
+    out = np.empty(dibits.shape[:-1] + (dibits.shape[-1] * 2,), np.uint8)
+    out[..., 0::2] = (dibits >> 1) & 1
+    out[..., 1::2] = dibits & 1
+    return out

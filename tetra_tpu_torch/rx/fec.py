@@ -1,8 +1,10 @@
 """Batched RX FEC (port of tetra_tpu/rx/fec.py): descramble, deinterleave,
 depuncture, Viterbi, CRC-16 and RM(30,14), for whole batches of rows in
-one pass on the keystream table's device.
+one pass on the device of the rows (or of the keystream table).
 
-Ported: the typed packed decode the fleet engine runs every cycle
+Ported: the per-type block decode (decode_block), the fused mixed-type
+decode the per-channel receiver runs once per cycle (decode_blocks_mixed),
+the typed packed decode the fleet engine runs every cycle
 (decode_rows_typed_packed: SB1/SB2/NDB rows on a 144-step trellis, SCH-F
 rows on 288 steps, BBK rows by RM(30,14)) and the unpacked mixed decode
 that the fleet falls back to when one cycle holds more than 15 cells
@@ -42,6 +44,20 @@ def _on(device, key, make) -> torch.Tensor:
     if k not in _DEV:
         _DEV[k] = torch.from_numpy(np.ascontiguousarray(make())).to(device)
     return _DEV[k]
+
+
+def descramble(bits: torch.Tensor, lfsr_init: int) -> torch.Tensor:
+    """bits: (..., L) uint8; scrambling is a self-inverse XOR."""
+    ks = keystream(int(lfsr_init), bits.shape[-1])
+    return bits ^ torch.from_numpy(ks).to(bits.device)
+
+
+def deinterleave(bits: torch.Tensor, a: int) -> torch.Tensor:
+    """Type-4 -> type-3 bits: out[..., i] = bits[..., k(i)]."""
+    K = bits.shape[-1]
+    idx = _on(bits.device, ("deint", K, a),
+              lambda: _deinterleave_idx(K, a).astype(np.int64))
+    return bits[..., idx]
 
 
 def depuncture_soft(bits: torch.Tensor, punct_id: int, mother_len: int,
@@ -110,6 +126,48 @@ def rm3014_decode(bits30: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 # ---------------------------------------------------------------------------
+# Per-type block decode (type-5 -> type-1 + CRC flag)
+# ---------------------------------------------------------------------------
+
+
+def _decode_bbk_block(type5: torch.Tensor, ks: torch.Tensor):
+    return rm3014_decode(type5 ^ ks)
+
+
+def _decode_cch_block(type5: torch.Tensor, ks: torch.Tensor, blk_type: int):
+    _, _, t2, t1, ia, _ = P.BLK_PARAMS[blk_type]
+    soft = depuncture_soft(deinterleave(type5 ^ ks, ia), P.PUNCT_2_3, t2 * 4,
+                           4)
+    type2 = viterbi_decode(soft, "cch")
+    return type2[..., :t1], crc16_check(type2[..., :t1 + 16])
+
+
+def decode_block(type5: torch.Tensor, blk_type: int, scramb_init
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Decode a batch of type-5 blocks of one type on type5's device.
+
+    type5: (B, type345_bits) uint8.  Returns (type1 bits (B, t1), ok (B,)).
+    SB1 blocks always use the predefined scrambling code (tetra_lower_mac.c:
+    186-190); BBK blocks use the RM(30,14) path.  scramb_init: one LFSR init
+    for the whole batch, or a length-B sequence of per-row inits."""
+    if blk_type == P.TPSAP_T_SB1:
+        scramb_init = P.SCRAMB_INIT
+    t345 = P.BLK_PARAMS[blk_type][1]
+    B = type5.shape[0]
+    if np.ndim(scramb_init) == 0:
+        ks = keystream(int(scramb_init), t345)
+    else:
+        if len(scramb_init) != B:
+            raise ValueError(f"{len(scramb_init)} scrambling codes for {B} "
+                             f"rows")
+        ks = np.stack([keystream(int(s), t345) for s in scramb_init])
+    ks = torch.from_numpy(np.ascontiguousarray(ks)).to(type5.device)
+    if blk_type == P.TPSAP_T_BBK:
+        return _decode_bbk_block(type5, ks)
+    return _decode_cch_block(type5, ks, blk_type)
+
+
+# ---------------------------------------------------------------------------
 # Mixed-type decode: every downlink block type in one pass
 # ---------------------------------------------------------------------------
 
@@ -136,16 +194,10 @@ _T5_BYTES = _MIX_T345 // 8     # 54
 _T1_BYTES = 34                 # ceil(268 / 8)
 
 
-def _deinterleave(type4: torch.Tensor, t345: int, ia: int) -> torch.Tensor:
-    idx = _on(type4.device, ("deint", t345, ia),
-              lambda: _deinterleave_idx(t345, ia).astype(np.int64))
-    return type4[:, :t345][:, idx]
-
-
 def _soft_padded(type4, t345, t2, ia, t2_pad):
     """Deinterleave + depuncture one variant, zero-codeword padded to
     t2_pad trellis steps."""
-    soft = depuncture_soft(_deinterleave(type4, t345, ia), P.PUNCT_2_3,
+    soft = depuncture_soft(deinterleave(type4[:, :t345], ia), P.PUNCT_2_3,
                            t2 * 4, 4)
     if t2 < t2_pad:
         pad = torch.full((soft.shape[0], t2_pad - t2, 4), _MIX_PAD_AMP,
@@ -184,6 +236,46 @@ def _decode_mixed_core(type4_in, ks, tsel):
     ok = torch.where(is_bbk, ok_bbk, ok)
     return torch.cat([type1, type1.new_zeros((B, _T1_BYTES * 8 - _MIX_T1))],
                      dim=1), ok
+
+
+def decode_blocks_mixed(blocks: list[tuple[int, np.ndarray, int]], device
+                        ) -> list[tuple[np.ndarray, bool]]:
+    """Decode a heterogeneous batch of type-5 blocks in one pass on
+    `device`.
+
+    blocks: [(blk_type, type5_bits, scramb_init)] -- every downlink block
+    type (SB1/SB2/NDB/SCH-F/BBK; SB1 rows use the fixed SCRAMB_INIT per
+    tetra_lower_mac.c:186-190 whatever init is passed).  Returns
+    [(type1_bits, crc_ok)] in order, each sliced to its type's length,
+    bit-exact vs decode_block (the _MIX_PAD_AMP note).  A batch holding a
+    type outside the variant table (SCH/HU: uplink only, never emitted by
+    the downlink burst splitter) decodes row by row through decode_block
+    instead."""
+    tsel = _MIX_TSEL_OF[np.fromiter((b[0] for b in blocks), np.int64,
+                                    len(blocks))]
+    if (tsel < 0).any():
+        out = []
+        for bt, bb, sc in blocks:
+            t1b, okb = decode_block(torch.from_numpy(np.ascontiguousarray(
+                bb, np.uint8)[None]).to(device), bt, sc)
+            out.append((t1b[0].cpu().numpy(), bool(okb[0])))
+        return out
+    B = len(blocks)
+    t5 = np.zeros((B, _MIX_T345), np.uint8)
+    ksm = np.zeros((B, _MIX_T345), np.uint8)
+    t1s = []
+    for j, (blk_type, bits, scramb) in enumerate(blocks):
+        _, t345, _, t1, _, _ = P.BLK_PARAMS[blk_type]
+        if blk_type == P.TPSAP_T_SB1:
+            scramb = P.SCRAMB_INIT
+        t5[j, :t345] = bits
+        ksm[j, :t345] = keystream(int(scramb), t345)
+        t1s.append(t1)
+    to = lambda a: torch.from_numpy(a).to(device)
+    type1, ok = _decode_mixed_core(to(t5), to(ksm), to(tsel))
+    type1 = type1.cpu().numpy()
+    ok = ok.cpu().numpy()
+    return [(type1[j, :t1s[j]], bool(ok[j])) for j in range(B)]
 
 
 def decode_rows_mixed(t5: np.ndarray, blk_types: np.ndarray,

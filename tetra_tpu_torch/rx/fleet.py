@@ -17,10 +17,7 @@ reference's "pcie" link profile: worker threads on all cores, typed FEC.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
-import subprocess
-import tempfile
 import threading
 
 import numpy as np
@@ -28,7 +25,7 @@ import torch
 
 from .. import params as P
 from .. import resolve_device
-from ..ops._build import BUILD_DIR
+from ..ops._build import host_library
 from . import fec as rx_fec
 from .display import DisplayState
 from .native_mac import MacStateStruct
@@ -82,36 +79,15 @@ class FleetChanStruct(ctypes.Structure):
     ]
 
 
-def _library_path() -> str:
-    h = hashlib.sha256()
-    for src in (_SRC, _SRC_DEP):
-        with open(src, "rb") as f:
-            h.update(f.read())
-    return os.path.join(BUILD_DIR, f"libtetra_fleet_{h.hexdigest()[:16]}.so")
-
-
 def load():
-    """Build (on first use) and load the native fleet library.  The build
-    writes a temporary file and renames it into place, so concurrent
-    processes never load a half-written library."""
+    """Build (on first use, ops._build.host_library) and load the native
+    fleet library."""
     global _lib
     with _lock:
         if _lib is not None:
             return _lib
-        so = _library_path()
-        if not os.path.exists(so):
-            os.makedirs(BUILD_DIR, exist_ok=True)
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-            os.close(fd)
-            try:
-                subprocess.run(["g++", "-O2", "-std=c++17", "-shared",
-                                "-fPIC", "-pthread", "-I", _NATIVE, "-o", tmp,
-                                _SRC], check=True)
-                os.replace(tmp, so)
-            finally:
-                if os.path.exists(tmp):
-                    os.remove(tmp)
-        lib = ctypes.CDLL(so)
+        lib = ctypes.CDLL(host_library("tetra_fleet", [_SRC, _SRC_DEP],
+                                       ["-pthread", "-I", _NATIVE]))
         vp, i64 = ctypes.c_void_p, ctypes.c_int64
         lib.fleet_create.restype = vp
         lib.fleet_create.argtypes = [i64, vp, i64, vp, i64, vp, i64, i64]

@@ -1,11 +1,20 @@
-"""Multi-channel TETRA receiver, fleet modes (port of
-tetra_tpu/rx/receiver.py).
+"""Multi-channel TETRA receiver (port of tetra_tpu/rx/receiver.py).
 
-Ported: the wideband fleet receiver (wideband=N, fleet=True: front end K3
-+ demod K1/K2 per cycle, K cycles per superblock packed into the
-fleet-feed words, native burst sync + MAC, batched FEC) and the narrowband
-fleet receiver (fleet=True: demod K1/K2 per block).  Other modes raise
-NotImplementedError (ROADMAP Queue 1 items 9-13).
+Ported, each wideband (wideband=N: front end K3 per cycle) or narrowband
+(process() of 36 ksps blocks), with the chunked demod K1 + K2:
+
+- the fleet receiver (fleet=True): K cycles per superblock packed into
+  the fleet-feed words, native burst sync + MAC around one batched FEC
+  pass (rx/fleet.FleetEngine);
+- the per-channel receiver (the default): K2 in its full form each
+  cycle, then per channel host burst sync (rx/burst_sync.BurstSync, with
+  the batched SYNC acquisition on the device while channels are
+  unlocked), one fused FEC pass on the device for every channel's blocks
+  and the per-channel lower/upper MAC (rx/lower_mac, rx/upper_mac).
+
+mode="exact" (ROADMAP Queue 1 item 12), mode="ff" (item 14), voice=True
+(item 13), mac_workers > 0 and keystore= (item 17) raise
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -13,10 +22,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import params as P
 from .. import resolve_device
 from ..parallel import channelizer as CH
 from . import demod_fast
+from .burst_sync import RX_LOCKED, RX_UNLOCKED, BurstSync, device_acquire_scan
+from .demod import dibits_to_bits
 from .fleet import FleetEngine
+from .lower_mac import LowerMac, process_bursts_multi
+from .tdma import PhyState
 
 
 def pack_cycle_tc(dib_tc, v32, dist_tc, n_ch: int, n_chunks: int):
@@ -53,6 +67,22 @@ def pack_cycle_tc(dib_tc, v32, dist_tc, n_ch: int, n_chunks: int):
     return packed, vacc_inc, dacc_inc
 
 
+def _wideband_step(dstate, wr, wi, hr, hi, n_ch: int, t36: int,
+                   n_chunks: int, i16: bool = False, tc_out: bool = False):
+    """One wideband cycle: the front end (K3) on one (wide_len,) window,
+    then the demod (K1, K2).  K2 runs in its full form (sym_re/sym_im for
+    the constellation) unless tc_out asks for the superblock's lean
+    time-major form.  i16: the window arrives as raw cs16 int16 and
+    converts on the device (half the upload bytes)."""
+    if i16:
+        wr = wr.to(torch.float32) * (1.0 / 32768.0)
+        wi = wi.to(torch.float32) * (1.0 / 32768.0)
+    rr, ri, hr, hi = CH._front_end_block(wr, wi, hr, hi, n_ch, t36)
+    dstate, outs = demod_fast._demod_block_impl(dstate, rr.T, ri.T, n_chunks,
+                                                tc_out=tc_out)
+    return dstate, outs, hr, hi
+
+
 def _wideband_step_scan(dstate, wrk, wik, hr, hi, n_ch: int, t36: int,
                         n_chunks: int, i16: bool, kw: int):
     """K-cycle superblock: kw overlapping windows (kw, wide_len) each run
@@ -63,14 +93,9 @@ def _wideband_step_scan(dstate, wrk, wik, hr, hi, n_ch: int, t36: int,
     vacc, dacc = zero, zero
     packed_k = []
     for j in range(kw):
-        wr, wi = wrk[j], wik[j]
-        if i16:
-            # cs16 converts on the device (half the upload bytes)
-            wr = wr.to(torch.float32) * (1.0 / 32768.0)
-            wi = wi.to(torch.float32) * (1.0 / 32768.0)
-        rr, ri, hr, hi = CH._front_end_block(wr, wi, hr, hi, n_ch, t36)
-        dstate, outs = demod_fast._demod_block_impl(dstate, rr.T, ri.T,
-                                                    n_chunks, tc_out=True)
+        dstate, outs, hr, hi = _wideband_step(dstate, wrk[j], wik[j], hr, hi,
+                                              n_ch, t36, n_chunks, i16,
+                                              tc_out=True)
         packed, vinc, dinc = pack_cycle_tc(
             outs["dibits_tc"], outs["valid_tc"], outs["dist_tc"], n_ch,
             n_chunks)
@@ -84,34 +109,93 @@ def _wideband_step_scan(dstate, wrk, wik, hr, hi, n_ch: int, t36: int,
 
 class TetraReceiver:
     def __init__(self, channels: int = 1, voice_cb=None, mode: str = "fast",
-                 wideband: int = 0, t50: int = 6400, fleet: bool = False,
-                 wb_k: int = 1, device=None):
-        """fleet=True runs the whole bit pipeline in the native fleet
-        engine (rx/fleet.FleetEngine).  wideband=N > 0 makes this an
-        N x 25 kHz wideband receiver fed through process_wideband() or
-        process_wideband_staged(); channels is forced to N, t50 sets the
+                 device_acquire: bool | None = None, mac_workers: int = 0,
+                 voice: bool = False, keystore: str | None = None,
+                 events: bool = True, wideband: int = 0, t50: int = 6400,
+                 fleet: bool = False, wb_k: int = 1,
+                 wb_pipeline: bool | None = None,
+                 link_profile: str = "tunnel", device=None):
+        """The reference's signature, plus device: the torch device
+        everything runs on (the current CUDA device by default, "cpu" only
+        when asked for; resolve_device).
+
+        wideband=N > 0 makes this an N x 25 kHz wideband receiver fed
+        through process_wideband() (and, in fleet mode,
+        process_wideband_staged()); channels is forced to N, t50 sets the
         per-channel 50 kHz samples per internal block (t50*18/25 must be a
-        multiple of the demod chunk), and wb_k cycles run per superblock.
-        device: the torch device everything runs on: the current CUDA
-        device by default, "cpu" only when asked for (resolve_device)."""
-        if not fleet:
-            raise NotImplementedError(
-                "only the fleet receiver is ported: the per-channel "
-                "LowerMac/BurstSync modes are ROADMAP Queue 1 item 9")
+        multiple of the demod chunk), and wb_k cycles run per fleet
+        superblock.
+
+        fleet=True runs the whole bit pipeline in the native fleet engine
+        (rx/fleet.FleetEngine); it implies events=False and ignores
+        device_acquire, as the reference does.  Otherwise each channel has
+        its own BurstSync and LowerMac.  events: keep the per-channel
+        parsed-PDU event log (UpperMac.events); with events=False the MAC
+        dispatch runs in the native core (rx/native_mac).
+        device_acquire: batch the UNLOCKED channels' SYNC search into one
+        correlation on the device (burst_sync.device_acquire_scan); on by
+        default from 64 channels.
+
+        link_profile: "tunnel" or "pcie".  The reference's two profiles
+        differ only in its fleet engine's host thread count and FEC
+        chunking (tetra_tpu/rx/fleet.py:173-225); the port decodes the
+        same under both (its fleet engine uses every core and decodes
+        each cycle's rows in one pass).  wb_pipeline: None and False are
+        no-ops (the reference pipelines fleet superblocks only); True in
+        fleet mode is not ported (ROADMAP "Not ported").
+
+        Not ported yet: mode="exact" (ROADMAP Queue 1 item 12), mode="ff"
+        (item 14), voice=True (item 13), mac_workers > 0 and keystore=
+        (item 17): each raises NotImplementedError."""
         if mode != "fast":
+            item = 14 if mode == "ff" else 12
             raise NotImplementedError(
                 f"mode={mode!r}: only the chunked 'fast' chain is ported "
-                f"(ROADMAP Queue 1 items 11 and 13)")
+                f"(ROADMAP Queue 1 item {item})")
+        if mac_workers:
+            raise NotImplementedError(
+                "mac_workers: the host MAC pool is not ported "
+                "(ROADMAP Queue 1 item 17)")
+        if keystore is not None:
+            raise NotImplementedError(
+                "keystore: the pooled crypto path is not ported "
+                "(ROADMAP Queue 1 item 17)")
+        if voice:
+            raise NotImplementedError(
+                "voice=True: the voice pipeline is not ported "
+                "(ROADMAP Queue 1 item 13)")
+        if link_profile not in ("tunnel", "pcie"):
+            raise ValueError(f"link_profile={link_profile!r}: 'tunnel' or "
+                             f"'pcie'")
+        if fleet and wb_pipeline:
+            raise NotImplementedError(
+                "wb_pipeline=True: superblock pipelining is not ported "
+                "(ROADMAP \"Not ported\")")
+        self.link_profile = link_profile
         self.device = resolve_device(device)
         if wideband:
             channels = wideband
         self.channels = channels
         self.demod = demod_fast
         self.state = demod_fast.demod_init(channels, self.device)
-        self.fleet = FleetEngine(channels, self.device, voice_cb=voice_cb)
         self.sym_quality = np.zeros(channels, np.float32)
         self.wideband = wideband
         self.wb_k = max(1, wb_k)
+        self._const = None
+        if fleet:
+            self.fleet = FleetEngine(channels, self.device, voice_cb=voice_cb)
+            self.mac = []
+        else:
+            self.fleet = None
+            self.phy = [PhyState() for _ in range(channels)]
+            self.sync = [BurstSync(phy=p) for p in self.phy]
+            self.mac = [LowerMac(phy=p, voice_cb=voice_cb, device=self.device)
+                        for p in self.phy]
+            for m in self.mac:
+                m.upper.events_enabled = events
+            self.device_acquire = (channels >= 64 if device_acquire is None
+                                   else device_acquire)
+            self.acquire_scans = 0      # device_acquire_scan calls
         if wideband:
             self._init_wideband(t50)
         else:
@@ -159,20 +243,13 @@ class TetraReceiver:
             self.state = self.state._replace(
                 fll_freq=torch.from_numpy(est).to(self.device))
         self.state, outs = demod_fast.demod_block(self.state, iq)
-        valid = outs["valid"].cpu().numpy()
-        dist = outs["dist"].cpu().numpy()
-        cnt = valid.sum(axis=1)
-        nz = cnt > 0
-        if nz.any():
-            s = np.where(valid, dist, 0.0).sum(axis=1)
-            self.sym_quality[nz] = (s[nz] / cnt[nz]).astype(np.float32)
-        self.fleet.process(outs["dibits"].cpu().numpy(),
-                           valid.astype(np.uint8))
+        self._post_demod(outs)
 
     def process_wideband(self, raw: np.ndarray) -> None:
         """Feed raw wideband IQ at N*25 kHz (complex, or interleaved cs16
-        int16; any length, buffered internally).  Every wb_k full windows
-        run as one superblock."""
+        int16; any length, buffered internally).  The fleet receiver runs
+        every wb_k full windows as one superblock, the per-channel one
+        each window as one cycle."""
         if not self.wideband:
             raise ValueError("construct with wideband=N")
         wb = self._wb
@@ -190,6 +267,23 @@ class TetraReceiver:
             wb["buf"] = np.concatenate([wb["buf"],
                                         np.asarray(raw, np.complex64)])
         stride = 2 if i16 else 1
+        to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(
+            self.device)
+        if self.fleet is None:
+            while len(wb["buf"]) >= stride * wb["wide_len"]:
+                win = wb["buf"][:stride * wb["wide_len"]]
+                wb["buf"] = wb["buf"][stride * wb["advance"]:]
+                if i16:
+                    wr, wi = win[0::2], win[1::2]
+                else:
+                    wr = win.real.astype(np.float32)
+                    wi = win.imag.astype(np.float32)
+                (self.state, outs, wb["hist_r"],
+                 wb["hist_i"]) = _wideband_step(
+                    self.state, to(wr), to(wi), wb["hist_r"], wb["hist_i"],
+                    self.wideband, wb["t36"], wb["n_chunks"], i16)
+                self._post_demod(outs)
+            return
         K = self.wb_k
         need = stride * ((K - 1) * wb["advance"] + wb["wide_len"])
         while len(wb["buf"]) >= need:
@@ -203,16 +297,15 @@ class TetraReceiver:
                 wr = np.stack([w.real for w in wins]).astype(np.float32)
                 wi = np.stack([w.imag for w in wins]).astype(np.float32)
             wb["buf"] = wb["buf"][stride * K * wb["advance"]:]
-            self._superblock(torch.from_numpy(wr).to(self.device),
-                             torch.from_numpy(wi).to(self.device), i16)
+            self._superblock(to(wr), to(wi), i16)
 
     def process_wideband_staged(self, wr, wi) -> None:
         """Superblock feed from windows already on the device: wr/wi
         (wb_k, wide_len) float32, window j covering wide samples
         [j*advance, j*advance + wide_len) of the stream (the framing
-        process_wideband uses)."""
-        if not self.wideband:
-            raise ValueError("staged ingest needs wideband=N")
+        process_wideband uses).  Fleet mode only, as in the reference."""
+        if not self.wideband or self.fleet is None:
+            raise ValueError("staged ingest needs wideband=N, fleet=True")
         shape = (self.wb_k, self._wb["wide_len"])
         if tuple(wr.shape) != shape or tuple(wi.shape) != shape:
             raise ValueError(f"staged windows must be {shape}")
@@ -229,29 +322,123 @@ class TetraReceiver:
         nz = vcount > 0
         if nz.any():
             self.sym_quality[nz] = (dsum[nz] / vcount[nz]).astype(np.float32)
+        self._const = None
         self.fleet.process_packed2(fused[:-2], self.wb_k, wb["n_chunks"])
 
     def flush_wideband(self) -> None:
         """Nothing is deferred: every superblock is decoded when it is fed
         (kept so reference callers run unchanged)."""
 
+    def _fetch(self, outs):
+        """The block's dibits (uint8), valid (bool) and dist (float32),
+        (C, S) each, fetched to the host once; sym_re/sym_im stay on the
+        device."""
+        return (outs["dibits"].cpu().numpy(), outs["valid"].cpu().numpy(),
+                outs["dist"].cpu().numpy())
+
+    def _post_demod(self, outs) -> None:
+        """A demod block's outputs -> the bit pipeline: the fleet engine,
+        or per-channel burst sync and one batched FEC + MAC pass."""
+        dibits, valid, dist = self._fetch(outs)
+        # constellation tap: kept on the device, fetched only on demand
+        self._const = (outs["sym_re"], outs["sym_im"], valid)
+        if self.fleet is not None:
+            cnt = valid.sum(axis=1)
+            nz = cnt > 0
+            if nz.any():
+                s = np.where(valid, dist, 0.0).sum(axis=1)
+                self.sym_quality[nz] = (s[nz] / cnt[nz]).astype(np.float32)
+            self.fleet.process(dibits, valid.astype(np.uint8))
+            return
+        feeds: dict[int, np.ndarray] = {}
+        for c in range(self.channels):
+            v = valid[c]
+            if not v.any():
+                continue
+            self.sym_quality[c] = float(dist[c][v].mean())
+            feeds[c] = dibits_to_bits(dibits[c][v])
+        macs, bursts_list = self._sync_bursts(feeds)
+        if macs:
+            process_bursts_multi(macs, bursts_list)
+
+    def _sync_bursts(self, feeds: dict):
+        """Per-channel burst sync of the new bits, after one batched SYNC
+        acquisition on the device for the unlocked channels.  Returns the
+        LowerMacs with new bursts and their burst lists."""
+        if self.device_acquire:
+            searching = [c for c in feeds
+                         if self.sync[c].state == RX_UNLOCKED]
+            if searching:
+                device_acquire_scan([self.sync[c] for c in searching],
+                                    [feeds[c] for c in searching],
+                                    pad_channels=self.channels,
+                                    device=self.device)
+                self.acquire_scans += 1
+        macs, bursts_list = [], []
+        for c, bits in feeds.items():
+            bursts = self.sync[c].feed(bits)
+            if bursts:
+                macs.append(self.mac[c])
+                bursts_list.append(bursts)
+        return macs, bursts_list
+
     # -- views ---------------------------------------------------------------
 
     def display(self, c: int = 0):
-        return self.fleet.display(c)
+        if self.fleet is not None:
+            return self.fleet.display(c)
+        return self.mac[c].upper.display
 
     def locked(self, c: int = 0) -> bool:
-        return self.fleet.locked(c)
+        if self.fleet is not None:
+            return self.fleet.locked(c)
+        return self.sync[c].state == RX_LOCKED
+
+    def constellation(self, c: int = 0, n: int = 256):
+        """(re, im) of the last block's final n valid post-Costas symbols
+        (the reference's constellation tap, main.cpp:376-383); empty after
+        a wideband fleet superblock, whose lean K2 form keeps no symbols."""
+        if self._const is None:
+            return np.zeros(0, np.float32), np.zeros(0, np.float32)
+        sym_re, sym_im, valid = self._const
+        v = valid[c]
+        return (sym_re[c].cpu().numpy()[v][-n:],
+                sym_im[c].cpu().numpy()[v][-n:])
 
     def crc_counts(self, c: int = 0) -> tuple[int, int]:
-        return self.fleet.crc_counts(c)
+        if self.fleet is not None:
+            return self.fleet.crc_counts(c)
+        return self.mac[c].crc_oks, self.mac[c].crc_fails
 
-    # -- checkpoint / resume (the reference's fleet-mode npz keys) -----------
+    def quality_ok(self, c: int = 0) -> bool:
+        """Signal-quality gate analogous to dqpsk_sym_extr.cpp:25-29."""
+        return bool(self.sym_quality[c] < P.SYNC_QUALITY_THRESHOLD)
+
+    # -- checkpoint / resume (the reference's npz keys) ----------------------
 
     def save_state(self, path: str) -> None:
+        """Demod loop state, then the fleet engine's channel blob or, per
+        channel, the burst sync (lock, bit buffer, TDMA time) and the cell
+        (scrambling, CRC tallies), then the wideband stream continuity.
+        Event logs and fragment slots are transient and not saved, as in
+        the reference."""
         data = {f"demod_{k}": v.cpu().numpy()
                 for k, v in self.state._asdict().items()}
-        data["fleet_blob"] = np.frombuffer(self.fleet.state_bytes(), np.uint8)
+        if self.fleet is not None:
+            data["fleet_blob"] = np.frombuffer(self.fleet.state_bytes(),
+                                               np.uint8)
+        else:
+            for c in range(self.channels):
+                s, m = self.sync[c], self.mac[c]
+                t = s.phy.time
+                data[f"sync{c}"] = np.array([
+                    s.state, s.bitbuf_start_bitnum,
+                    s.next_frame_start_bitnum, s.lock_losses,
+                    s.phy.slot_count, t.hn, t.mn, t.fn, t.tn, t.sn], np.int64)
+                data[f"bitbuf{c}"] = s.bitbuf
+                data[f"cell{c}"] = np.array([
+                    m.cell.mcc, m.cell.mnc, m.cell.colour_code,
+                    m.cell.scramb_init, m.crc_oks, m.crc_fails], np.int64)
         data["sym_quality"] = self.sym_quality
         if self.wideband:
             data["wb_buf"] = self._wb["buf"]
@@ -262,16 +449,37 @@ class TetraReceiver:
     def load_state(self, path: str) -> None:
         from ..convert import hist_from_numpy, state_from_numpy
         z = np.load(path)
-        if "fleet_blob" not in z.files:
-            raise ValueError("not a fleet-mode checkpoint")
+        if (self.fleet is not None) != ("fleet_blob" in z.files):
+            raise ValueError("checkpoint and receiver differ in fleet mode")
         self.state = state_from_numpy(
             {k[len("demod_"):]: z[k] for k in z.files
              if k.startswith("demod_")}, self.device)
-        self.fleet.load_state_bytes(z["fleet_blob"].tobytes())
+        if self.fleet is not None:
+            self.fleet.load_state_bytes(z["fleet_blob"].tobytes())
+        else:
+            for c in range(self.channels):
+                s, m = self.sync[c], self.mac[c]
+                (s.state, s.bitbuf_start_bitnum, s.next_frame_start_bitnum,
+                 s.lock_losses, s.phy.slot_count,
+                 hn, mn, fn, tn, sn) = (int(x) for x in z[f"sync{c}"])
+                t = s.phy.time
+                t.hn, t.mn, t.fn, t.tn, t.sn = hn, mn, fn, tn, sn
+                s.bitbuf = z[f"bitbuf{c}"].astype(np.uint8)
+                # the scan restarts from the buffer head: it merely scans
+                # the restored buffer once more
+                s.scan_from = s.bitbuf_start_bitnum
+                s.pending_scan = None
+                (m.cell.mcc, m.cell.mnc, m.cell.colour_code,
+                 m.cell.scramb_init, m.crc_oks, m.crc_fails) = (
+                    int(x) for x in z[f"cell{c}"])
+                d = m.upper.display
+                d.mcc, d.mnc, d.cc = m.cell.mcc, m.cell.mnc, m.cell.colour_code
         self.sym_quality = z["sym_quality"]
         if self.wideband and "wb_hist_r" in z.files:
             self._wb["buf"] = z["wb_buf"].astype(np.complex64) \
                 if z["wb_buf"].dtype != np.int16 else z["wb_buf"]
             self._wb["hist_r"], self._wb["hist_i"] = hist_from_numpy(
                 z["wb_hist_r"], z["wb_hist_i"], self.device)
+        # the restored FLL state must not be clobbered by the coarse-CFO
+        # preset
         self._cfo_primed = True
