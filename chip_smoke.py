@@ -25,6 +25,23 @@ Phases, each printing one line (any failure raises and exits non-zero):
    the cycles after a 1.5 s warm-up; gates: the slice's three, > 90% of
    channels passing quality_ok, a constellation on every locked channel
    (K2's full form), K1-K4 launched and the device acquisition used.
+5. slice_voice: the same receiver and feed on 3.6 s of air whose 8 cells
+   carry voice on timeslot 2 with stolen slots of both kinds, cells 4-7
+   TEA1-encrypted (tx.wideband.voice_cell_air; the keystore is written to
+   a temporary file): one VoicePipeline on carriers 0-7 (one per cell),
+   carriers 4-7 with one CryptoState from the keystore on the upper MAC
+   and the pipeline, and their event logs on.  Gates: slice_nonfleet's;
+   on every carrier >= 80% of the voice slots after warm-up decoded (not
+   counting both-halves steals); every frame handed to the codec without
+   a bad-frame flag equal to the sent one (on encrypted carriers after
+   decryption, once the receiver has both SYSINFO arms, and different
+   from it on air); bad frames <= 2%; a stolen-half decode that matched;
+   480 samples a decoded slot, equal to a fresh AcelpDecoder fed the same
+   frames; decrypted SDUs on carriers 4-7; the decode's tensors on the
+   card.  Its line (printed after the profiler windows, which also count
+   the device ops of one decode_slot call) carries the rate, rt_margin
+   and stage times beside slice_nonfleet's, and ms per pipeline call
+   split into channel decode and ACELP.
 
 K3's row also carries its second kernel, the resample, timed alone on
 K4's output (resample_ms, 9 runs of 20 launches with min-max, and
@@ -61,8 +78,10 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -70,6 +89,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from tetra_tpu_torch import exact_float32
+from tetra_tpu_torch.crypto.state import CryptoState, KeyStore
 from tetra_tpu_torch.ops import _build
 from tetra_tpu_torch.ops import chan_kernel as CK
 from tetra_tpu_torch.ops import demod_kernel as DK
@@ -81,8 +101,12 @@ from tetra_tpu_torch.rx import fec as FEC
 from tetra_tpu_torch.rx import lower_mac as LM
 from tetra_tpu_torch.rx import receiver as R
 from tetra_tpu_torch.rx.receiver import TetraReceiver
-from tetra_tpu_torch.tx.wideband import (cell_air, heterogeneous_fleet_iq,
-                                         staged_windows)
+from tetra_tpu_torch.tx.wideband import (cell_air, cell_keystore,
+                                         heterogeneous_fleet_iq,
+                                         staged_windows, voice_cell_air)
+from tetra_tpu_torch.voice import channel as VCH
+from tetra_tpu_torch.voice.acelp import AcelpDecoder
+from tetra_tpu_torch.voice.pipeline import VoicePipeline
 
 C_DEMOD, T_DEMOD = 256, 4608          # demod shapes of the main path
 N_CH, T50 = 256, 6400                 # front-end shapes of the main path
@@ -92,6 +116,10 @@ AIR_SECONDS = 6.0
 N_CELLS = 8
 NONFLEET_SECONDS = 3.6                # air the per-channel slice is fed
 WARM_SECONDS = 1.5                    # FLL pull-in + scrambling acquisition
+ENCRYPTED = (4, 5, 6, 7)              # TEA1 cells of the voice slice
+VOICE_TS = 2                          # the voice slice's traffic timeslot
+MIN_VOICE_SHARE = 0.8                 # voice slots decoded after warm-up
+MAX_BAD_SHARE = 0.02                  # bad frames among decoded slots
 
 # limits of kernel vs plain on identical inputs (float32, different
 # summation orders and cosf/sinf/rsqrtf vs the CPU-style library calls)
@@ -617,12 +645,14 @@ class StageClock:
 
     def __init__(self):
         self.sec = {}
+        self.calls = {}
         self._saved = []
 
     def wrap(self, owner, name: str, stage: str) -> None:
         fn = getattr(owner, name)
         self._saved.append((owner, name, fn))
         self.sec.setdefault(stage, 0.0)
+        self.calls.setdefault(stage, 0)
 
         def timed(*args, **kwargs):
             t0 = time.perf_counter()
@@ -630,6 +660,7 @@ class StageClock:
                 return fn(*args, **kwargs)
             finally:
                 self.sec[stage] += time.perf_counter() - t0
+                self.calls[stage] += 1
 
         setattr(owner, name, timed)
 
@@ -639,11 +670,17 @@ class StageClock:
         self._saved = []
 
 
-def phase_slice_nonfleet(dev, wide: np.ndarray, n_ch: int = N_CH) -> dict:
+def phase_slice_nonfleet(dev, wide: np.ndarray, n_ch: int = N_CH,
+                         attach=None, stages=(), at_warm=None) -> dict:
     """The per-channel receiver as the CLI builds it, fed host cf32 chunks
     of one cycle's advance (the first window primed), timed per cycle after
-    WARM_SECONDS of warm-up."""
+    WARM_SECONDS of warm-up.  attach(rx) runs once the receiver is built,
+    at_warm() at the end of the warm-up; stages are more (owner, name,
+    stage) to time over the timed cycles, returned under "stages" with
+    their ms per cycle, calls and ms per call."""
     rx = TetraReceiver(wideband=n_ch, t50=T50, events=False, device=dev)
+    if attach is not None:
+        attach(rx)
     check(rx.fleet is None and rx.device_acquire,
           "the CLI's receiver is per-channel with device acquisition")
     adv, wl = rx._wb["advance"], rx._wb["wide_len"]
@@ -664,6 +701,8 @@ def phase_slice_nonfleet(dev, wide: np.ndarray, n_ch: int = N_CH) -> dict:
         rx.process_wideband(chunks[k])
     ok0 = sum(rx.crc_counts(c)[0] for c in range(n_ch))
     fail0 = sum(rx.crc_counts(c)[1] for c in range(n_ch))
+    if at_warm is not None:
+        at_warm()
     clock, fec_clock = StageClock(), StageClock()
     clock.wrap(R, "_wideband_step", "device step + fetch")
     clock.wrap(TetraReceiver, "_fetch", "device step + fetch")
@@ -675,6 +714,8 @@ def phase_slice_nonfleet(dev, wide: np.ndarray, n_ch: int = N_CH) -> dict:
     # ops as the host issues them
     fec_clock.wrap(FEC, "decode_blocks_mixed", "decode_blocks_mixed")
     fec_clock.wrap(FEC, "_decode_mixed_core", "decode ops issued")
+    for owner, name, stage in stages:
+        fec_clock.wrap(owner, name, stage)
     walls = []
     try:
         for k in range(warm + 1, n_cyc + 1):
@@ -711,7 +752,13 @@ def phase_slice_nonfleet(dev, wide: np.ndarray, n_ch: int = N_CH) -> dict:
     stage_ms = {k: v * 1e3 / n_t for k, v in clock.sec.items()}
     stage_ms["rest (framing, upload, demod host work)"] = \
         float(np.mean(walls)) * 1e3 - sum(stage_ms.values())
-    fec_ms = {k: v * 1e3 / n_t for k, v in fec_clock.sec.items()}
+    fec_ms = {k: fec_clock.sec[k] * 1e3 / n_t
+              for k in ("decode_blocks_mixed", "decode ops issued")}
+    extra = {stage: dict(ms_per_cycle=fec_clock.sec[stage] * 1e3 / n_t,
+                         calls=fec_clock.calls[stage],
+                         ms_per_call=fec_clock.sec[stage] * 1e3
+                         / max(1, fec_clock.calls[stage]))
+             for _, _, stage in stages}
     return dict(channels=n_ch, t50=T50, cycles_driven=n_cyc,
                 cycles_timed=n_t, cycle_air_ms=air * 1e3,
                 wideband_msps=n_t * adv / sum(walls) / 1e6,
@@ -725,7 +772,234 @@ def phase_slice_nonfleet(dev, wide: np.ndarray, n_ch: int = N_CH) -> dict:
                 constellation_channels=len(const),
                 acquire_scans=rx.acquire_scans, launches=launches,
                 launches_per_cycle={k: v / n_cyc
-                                    for k, v in launches.items()})
+                                    for k, v in launches.items()},
+                warm_cycles=warm, advance=adv, fs=fs, stages=extra)
+
+
+class SpyDecoder:
+    """An AcelpDecoder that records every call: the TDMA time its pipeline
+    is decoding (set by RecordingPipeline), the kind ("slot" or the stolen
+    slot's "frame"), the codec bits and the bad-frame flag."""
+
+    def __init__(self):
+        self.inner = AcelpDecoder()
+        self.calls = []
+        self.key = None
+
+    def decode_slot(self, frames, bfi=False):
+        self.calls.append((self.key, "slot",
+                           np.array(frames, np.uint8).reshape(2, 137),
+                           bool(bfi)))
+        return self.inner.decode_slot(frames, bfi)
+
+    def decode_frame(self, bits, bfi=False):
+        self.calls.append((self.key, "frame", np.array(bits, np.uint8),
+                           bool(bfi)))
+        return self.inner.decode_frame(bits, bfi)
+
+
+class RecordingPipeline(VoicePipeline):
+    """A VoicePipeline whose spy decoder learns the TDMA time of each
+    call."""
+
+    def _gate(self, time):
+        self.decoder.key = (time.mn, time.fn, time.tn)
+        return super()._gate(time)
+
+
+def replay_audio(calls) -> np.ndarray:
+    """What a fresh AcelpDecoder makes of the recorded calls, in order
+    (a stolen slot's lost frame is 240 samples of silence)."""
+    dec = AcelpDecoder()
+    out = [dec.decode_slot(f, b) if kind == "slot"
+           else np.concatenate([np.zeros(240, np.int16),
+                                dec.decode_frame(f, b)])
+           for _, kind, f, b in calls]
+    return np.concatenate(out) if out else np.zeros(0, np.int16)
+
+
+def voice_truth(records, lo: int, hi: int) -> dict:
+    """{(mn, fn, tn): ("slot", (2, 137) frames) or ("frame", frame 2)} of
+    the voice-bearing slots records[lo:hi] (first-half steals keep their
+    second frame; both-halves steals carry no voice)."""
+    out = {}
+    for r in records[lo:hi]:
+        key = (r.time.mn, r.time.fn, r.time.tn)
+        if r.kind == "voice":
+            out[key] = ("slot", np.asarray(r.type1["frames"]).reshape(2, 137))
+        elif r.kind == "stch" and "frames" in r.type1:
+            out[key] = ("frame", np.asarray(r.type1["frames"])[1])
+    return out
+
+
+def phase_slice_voice(dev, nf: dict, n_ch: int = N_CH,
+                      seconds: float = NONFLEET_SECONDS,
+                      n_cells: int = N_CELLS) -> dict:
+    """The per-channel receiver of slice_nonfleet on air with traffic: one
+    VoicePipeline on carrier c < n_cells (one per cell), the TEA1 cells'
+    channels with one CryptoState from a keystore file on the upper MAC
+    and the pipeline, and the event log on for them (the CLI's -v)."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        keys = os.path.join(tmp, "keys.txt")
+        with open(keys, "w") as f:
+            f.write(cell_keystore(ENCRYPTED))
+        wide, records = voice_cell_air(n_ch, seconds, n_cells, keystore=keys,
+                                       encrypted=ENCRYPTED)
+        stores = {c: KeyStore.load(keys) for c in ENCRYPTED}
+    fixture_s = time.perf_counter() - t0
+    pipes, cipher, events0, devices, rxs = {}, {}, {}, set(), []
+
+    def spy_crypto(cs, log):
+        """Record the frames each voice decryption starts from, and whether
+        the cipher context was whole by then: the SYSINFO PDUs of both arms
+        (the CCK id and the hyperframe number) received."""
+        arms = set()
+        decrypt, update = cs.decrypt_voice_bits, cs.update_from_sysinfo
+
+        def spy_update(sid):
+            arms.add(bool(sid.cck_valid_no_hf))
+            return update(sid)
+
+        def spy_decrypt(t, frames):
+            log[(t.mn, t.fn, t.tn)] = (frames.copy(), len(arms) == 2)
+            return decrypt(t, frames)
+        cs.update_from_sysinfo = spy_update
+        cs.decrypt_voice_bits = spy_decrypt
+
+    def attach(rx):
+        rxs.append(rx)
+        for c in range(n_cells):
+            cs = None
+            if c in ENCRYPTED:
+                cs = CryptoState(store=stores[c])
+                spy_crypto(cs, cipher.setdefault(c, {}))
+                rx.mac[c].upper.crypto_state = cs
+                rx.mac[c].upper.events_enabled = True
+            pipes[c] = RecordingPipeline(decoder=SpyDecoder(),
+                                         crypto_state=cs, device=dev)
+            rx.mac[c].voice_cb = pipes[c]
+
+    def at_warm():
+        for c, vp in pipes.items():
+            events0[c] = len(rxs[0].mac[c].upper.events)
+            vp.warm_calls = len(vp.decoder.calls)
+
+    def on_device(fn):
+        """Note the devices of the decode's inputs and outputs."""
+        def run(type4, perm):
+            out = fn(type4, perm)
+            devices.update({type4.device.type, perm.device.type,
+                            out[0].device.type})
+            return out
+        return run
+
+    saved = VCH._decode_slot_device, VCH._decode_half_device
+    VCH._decode_slot_device, VCH._decode_half_device = map(on_device, saved)
+    try:
+        res = phase_slice_nonfleet(
+            dev, wide, n_ch, attach=attach, at_warm=at_warm,
+            stages=[(VoicePipeline, "__call__", "voice"),
+                    (VoicePipeline, "half", "voice (half)"),
+                    (VCH, "decode_slot", "channel decode"),
+                    (VCH, "decode_half_slot", "channel decode (half)"),
+                    (SpyDecoder, "decode_slot", "ACELP"),
+                    (SpyDecoder, "decode_frame", "ACELP (half)")])
+    finally:
+        VCH._decode_slot_device, VCH._decode_half_device = saved
+    rx = rxs[0]
+    check(devices == {dev.type}, f"speech decode tensors on {devices}")
+    check(all(vp.device == dev for vp in pipes.values()),
+          "a pipeline decodes off the receiver's device")
+    # slot j of a carrier starts at 36 kHz sample 510 j: the slots whose
+    # air the timed cycles carried, less a margin at each end
+    slot_of = lambda wide_samples: wide_samples / res["fs"] * 36_000 / 510
+    lo = int(slot_of(res["warm_cycles"] * res["advance"])) + 2
+    hi = int(slot_of(res["cycles_driven"] * res["advance"])) - 4
+    per, n_half_ok, n_dec, n_bad, n_dark, n_clear = {}, 0, 0, 0, 0, {}
+    for c, vp in pipes.items():
+        truth = voice_truth(records[c], lo, hi)
+        calls = vp.decoder.calls
+        timed = [x for x in calls[vp.warm_calls:] if x[0] in truth]
+        decoded = {x[0] for x in timed}
+        check(len(decoded) >= MIN_VOICE_SHARE * len(truth) and truth,
+              f"carrier {c}: decoded {len(decoded)} of {len(truth)} voice "
+              f"slots after warm-up")
+        bad = sum(b for _, _, _, b in timed)
+        n_dec += len(timed)
+        n_bad += bad
+        for key, kind, frames, b in timed:
+            want_kind, want = truth[key]
+            check(kind == want_kind, f"carrier {c} {key}: {kind} decode of "
+                  f"a {want_kind} slot")
+            if b:
+                continue
+            if kind == "slot" and c in ENCRYPTED:
+                on_air, context = cipher[c][key]
+                check(not np.array_equal(on_air, want),
+                      f"carrier {c} {key}: frames not encrypted on air")
+                if not context:
+                    # the keystream needs both SYSINFO arms; until the
+                    # receiver has seen them its plaintext is wrong
+                    n_dark += 1
+                    continue
+                n_clear[c] = n_clear.get(c, 0) + 1
+            check(np.array_equal(frames, want),
+                  f"carrier {c} {key}: codec frames differ from the sent")
+            if kind == "frame":
+                n_half_ok += 1
+        audio = vp.take_audio()
+        check(len(audio) == 480 * vp.slots_decoded == 480 * len(calls),
+              f"carrier {c}: {len(audio)} samples for {vp.slots_decoded} "
+              f"slots")
+        check(np.array_equal(audio, replay_audio(calls)),
+              f"carrier {c}: audio differs from a fresh decoder's")
+        sdus = 0
+        if c in ENCRYPTED:
+            sdus = sum(e[0] == "llc" and e[2].name == "BL-UDATA"
+                       and e[3] is not None
+                       and e[3].pdu_name == "D-SDS DATA"
+                       for e in rx.mac[c].upper.events[events0[c]:])
+            check(sdus > 0, f"carrier {c}: no decrypted SDU after warm-up")
+            check(n_clear.get(c, 0) > 0,
+                  f"carrier {c}: no voice slot decrypted after warm-up")
+        per[c] = dict(voice_slots=len(truth), decoded=len(decoded),
+                      calls=len(calls), bad=bad, decrypted_sdus=sdus,
+                      decrypted_slots=n_clear.get(c, 0))
+    check(n_bad <= MAX_BAD_SHARE * n_dec,
+          f"{n_bad} bad frames in {n_dec} decoded slots")
+    check(n_half_ok > 0, "no stolen-half decode ran and matched")
+    out = {k: v for k, v in res.items() if k != "stages"}
+    out.update(fixture_s=fixture_s, carriers=per, slots_decoded=n_dec,
+               bad_frames=n_bad, half_decodes_matched=n_half_ok,
+               encrypted_slots_before_context=n_dark,
+               decrypted_sdus=sum(v["decrypted_sdus"] for v in per.values()),
+               voice_stages=res["stages"],
+               slice_nonfleet={k: nf.get(k) for k in (
+                   "wideband_msps", "rt_margin", "cycle_wall_ms")})
+    return out
+
+
+def decode_slot_device_ops(dev) -> dict:
+    """Device operations one decode_slot call issues (B = 1, as the
+    pipeline calls it): the profiler's device rows over one call."""
+    frames = np.random.default_rng(3).integers(0, 2, (2, 137)).astype(
+        np.uint8)
+    type4 = VCH.encode_slot(frames.reshape(-1))[None]
+    VCH.decode_slot(type4, device=dev)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        got, bfi = VCH.decode_slot(type4, device=dev)
+        torch.cuda.synchronize()
+    check(np.array_equal(got[0], frames) and not bfi[0],
+          "decode_slot under the profiler")
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    return dict(device_ops=sum(e.count for e in rows),
+                device_ms=sum(_device_ms(e) for e in rows),
+                memcpy_ops=sum(e.count for e in rows
+                               if "memcpy" in e.key.lower()))
 
 
 def main() -> None:
@@ -750,7 +1024,11 @@ def main() -> None:
     print(f"slice: gpu=[{gpu}] " + json.dumps(sl), flush=True)
     nf = phase_slice_nonfleet(dev, wide)
     print(f"slice_nonfleet: gpu=[{gpu}] " + json.dumps(nf), flush=True)
+    del wide
+    voice = phase_slice_voice(dev, nf)
     phase_device_times(jobs + front_jobs)
+    voice["decode_slot_profile"] = decode_slot_device_ops(dev)
+    print(f"slice_voice: gpu=[{gpu}] " + json.dumps(voice), flush=True)
     for r in rows:
         print("kernel: " + json.dumps(r), flush=True)
     kernels = [dict(name=r["name"], route="cuda", source=SOURCES[r["name"]],

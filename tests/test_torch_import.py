@@ -50,7 +50,11 @@ def test_port_covers_the_slice_layout():
               "ops.demod_kernel", "ops.mm_kernel", "ops.chan_kernel",
               "parallel.channelizer", "tx.wideband", "convert",
               "rx.burst_sync", "rx.lower_mac", "rx.upper_mac", "rx.mac_pdu",
-              "rx.llc", "rx.mle", "rx.native_mac", "ops.train_corr"):
+              "rx.llc", "rx.mle", "rx.native_mac", "ops.train_corr",
+              "crypto.tea_tables", "crypto.tea", "crypto.hurdle_tables",
+              "crypto.hurdle", "crypto.taa1", "crypto.state",
+              "voice.acelp", "voice.channel", "voice.pipeline",
+              "voice.audio_out"):
         assert "tetra_tpu_torch." + m in mods, m
 
 
@@ -91,6 +95,18 @@ for i in range(0, len(bits), 4608):
     mac.process_bursts(sync.feed(bits[i:i + 4608]))
 assert mac.upper.display.mnc == 77 and mac.crc_oks > 100, mac.crc_oks
 assert isinstance(mac.upper.__dict__['_native'], native_mac.NativeMacHandle)
+# one speech slot through the channel decoder and the ACELP codec, and a
+# TEA1 keystream
+from tetra_tpu_torch.crypto import tea
+from tetra_tpu_torch.rx.tdma import TdmaTime
+from tetra_tpu_torch.voice import channel
+from tetra_tpu_torch.voice.pipeline import VoicePipeline
+frames = np.random.default_rng(1).integers(0, 2, (2, 137)).astype(np.uint8)
+vp = VoicePipeline(device='cpu')
+vp(TdmaTime(mn=1, fn=2, tn=2), channel.encode_slot(frames.reshape(-1)))
+assert vp.slots_decoded == 1 and vp.bad_frames == 0
+assert vp.take_audio().shape == (480,)
+assert len(tea.tea1(0x1234, bytes(range(10)), 8)) == 8
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'tetra_tpu'))
 assert not bad, bad
@@ -102,7 +118,8 @@ def test_runs_without_jax_or_tetra_tpu():
     """With jax and the JAX package both blocked: every port module and
     chip_smoke import, the cell_air fixture runs (4 channels, 0.1 s), the
     C++ sources of the fleet engine and of the native MAC lie inside
-    tetra_tpu_torch/, and a BurstSync + LowerMac decode of a cell runs."""
+    tetra_tpu_torch/, a BurstSync + LowerMac decode of a cell runs, and so
+    do a speech slot's decode and synthesis and a TEA1 keystream."""
     mods = _modules() + ["chip_smoke"]
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = ROOT

@@ -224,12 +224,17 @@ def test_process_bursts_multi_matches_jax(events, monkeypatch):
             assert _plain(tm.upper.events) == _plain(jm.upper.events)
 
 
-def test_crypto_state_is_not_ported():
+def test_crypto_state_is_a_field_holding_a_crypto_state():
+    """UpperMac.crypto_state is the reference's dataclass field: None by
+    default, and it holds the port's CryptoState once set."""
+    from tetra_tpu_torch.crypto.state import CryptoState
+    assert "crypto_state" in {f.name for f in dataclasses.fields(TUM.UpperMac)}
     um = TUM.UpperMac()
     assert um.crypto_state is None
-    um.crypto_state = None
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 13"):
-        um.crypto_state = object()
+    cs = CryptoState()
+    um.crypto_state = cs
+    assert um.crypto_state is cs
+    assert TUM.UpperMac(crypto_state=cs).crypto_state is cs
 
 
 def test_lower_mac_needs_a_device_without_cuda():

@@ -148,7 +148,6 @@ def test_narrowband_fleet_matches_jax():
     (dict(fleet=True, mode="exact"), "item 12"),
     (dict(mac_workers=2), "item 17"),
     (dict(keystore="keys.txt"), "item 17"),
-    (dict(voice=True), "item 13"),
     (dict(fleet=True, wideband=8, wb_k=2, wb_pipeline=True), "Not ported"),
 ])
 def test_unported_modes_raise(kw, item):
@@ -185,6 +184,22 @@ def test_reference_call_forms():
     assert TetraReceiver(channels=16, device="cpu").channels == 16
     with pytest.raises(ValueError, match="link_profile"):
         TetraReceiver(channels=2, link_profile="wifi", device="cpu")
+
+
+def test_voice_true_constructs_as_in_the_reference():
+    """voice=True without mac_workers constructs, as the JAX receiver's
+    does (it selects worker-side pipelines in the MAC pool only); voice
+    decodes through a VoicePipeline on each channel's voice_cb."""
+    from tetra_tpu_torch.voice.pipeline import VoicePipeline
+    JaxReceiver(channels=2, voice=True)
+    rx = TetraReceiver(channels=2, voice=True, device="cpu")
+    assert rx.fleet is None and len(rx.mac) == 2
+    assert all(m.voice_cb is None for m in rx.mac)
+    rx.mac[1].voice_cb = vp = VoicePipeline(device="cpu")
+    assert rx.mac[1].voice_cb is vp and vp.device.type == "cpu"
+    rx = TetraReceiver(wideband=8, t50=1600, voice=True, events=False,
+                       device="cpu")
+    assert rx.channels == 8
 
 
 def test_device_is_required():

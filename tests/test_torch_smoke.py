@@ -94,3 +94,49 @@ def test_bounds_at_main_path_shapes(name):
         assert w["ops"] == t36 * C * 96
         assert w["bound_by"] == "bytes"
         assert 22.5e6 < w["bytes"] < 22.7e6
+
+
+def test_voice_spies_replay_the_pipelines_audio():
+    """slice_voice's spies: RecordingPipeline's SpyDecoder records each
+    codec call under its TDMA time, and replay_audio reproduces the
+    pipeline's audio from the record (full slots, a stolen half)."""
+    from tetra_tpu_torch.rx.tdma import TdmaTime
+    from tetra_tpu_torch.voice import channel
+    rng = np.random.default_rng(6)
+    frames = rng.integers(0, 2, (3, 2, 137)).astype(np.uint8)
+    vp = CS.RecordingPipeline(decoder=CS.SpyDecoder(), device="cpu")
+    for fn, f in enumerate(frames[:2], start=1):
+        vp(TdmaTime(mn=2, fn=fn, tn=2), channel.encode_slot(f.reshape(-1)))
+    vp.half(TdmaTime(mn=2, fn=3, tn=2), channel.encode_half_slot(frames[2][1]))
+    calls = vp.decoder.calls
+    assert [(k, kind, b) for k, kind, _, b in calls] == [
+        ((2, 1, 2), "slot", False), ((2, 2, 2), "slot", False),
+        ((2, 3, 2), "frame", False)]
+    np.testing.assert_array_equal(calls[1][2], frames[1])
+    np.testing.assert_array_equal(calls[2][2], frames[2][1])
+    audio = vp.take_audio()
+    assert len(audio) == 3 * 480
+    np.testing.assert_array_equal(audio, CS.replay_audio(calls))
+
+
+def test_voice_truth_keeps_the_voice_bearing_slots():
+    """voice_truth: voice slots give both frames, first-half steals their
+    second frame, both-halves steals and signalling nothing."""
+    from tetra_tpu_torch.rx.tdma import TdmaTime
+    from tetra_tpu_torch.tx.cell import CellConfig, downlink_bits
+    rng = np.random.default_rng(2)
+    _, recs = downlink_bits(
+        CellConfig(), 80, start=TdmaTime(mn=1, fn=1, tn=1),
+        voice_slots={2: lambda: rng.integers(0, 2, (2, 137)).astype(
+            np.uint8)},
+        stolen_slots={(3, 2): "first", (5, 2): "both"})
+    truth = CS.voice_truth(recs, 0, len(recs))
+    assert truth[(1, 3, 2)][0] == "frame" and truth[(1, 2, 2)][0] == "slot"
+    assert (1, 5, 2) not in truth and (1, 2, 3) not in truth
+    voice = [r for r in recs if r.kind == "voice"]
+    assert len(truth) == len(voice) + sum(
+        r.kind == "stch" and "frames" in r.type1 for r in recs)
+    np.testing.assert_array_equal(truth[(1, 3, 2)][1], next(
+        r.type1["frames"][1] for r in recs
+        if (r.time.mn, r.time.fn, r.time.tn) == (1, 3, 2)))
+    assert len(CS.voice_truth(recs, 10, 20)) < len(truth)

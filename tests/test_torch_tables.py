@@ -234,34 +234,69 @@ def test_fec_enc_and_burst_copy_equal(name):
     _same(np.asarray(fn(port)), np.asarray(fn(ref)))
 
 
-@pytest.mark.parametrize("frag", [False, True])
-def test_downlink_bits_copy_equal(frag):
-    """A seeded signalling cell (no voice, no crypto): bits and records."""
-    kw = {}
-    if frag:
-        msg = np.random.default_rng(5).integers(0, 2, 260).astype(np.uint8)
-        kw["frag_message"] = ((3, 2), msg)
+def _cell_crypto(state_mod, cfg):
+    """A TEA1 cipher state for the cell, built in one package."""
+    ks = state_mod.KeyStore()
+    ks.nets.append(state_mod.NetInfo(cfg["mcc"], cfg["mnc"], ksg_type=1,
+                                     security_class=2))
+    ks.keys.append(state_mod.Key(cfg["mcc"], cfg["mnc"], addr=0,
+                                 key_type=state_mod.KEYTYPE_CCK_SCK,
+                                 key_num=3, key=bytes(range(10)),
+                                 network=ks.nets[0]))
+    cs = state_mod.CryptoState(store=ks)
+    cs.cc, cs.la, cs.cn, cs.hn, cs.cck_id = cfg["cc"], 21, 3600, 42, 3
+    cs.update_network(cfg["mcc"], cfg["mnc"])
+    return cs
+
+
+DOWNLINK_CASES = ["signalling", "frag", "voice", "stolen", "crypto",
+                  "voice_stolen_crypto"]
+
+
+@pytest.mark.parametrize("case", DOWNLINK_CASES)
+def test_downlink_bits_copy_equal(case):
+    """A seeded cell through each arm of downlink_bits (signalling only, a
+    fragmented SDU, voice on two timeslots, stolen slots of both kinds, a
+    TEA1-encrypted cell, and all of these together): bits and records."""
+    from tetra_tpu.crypto import state as JST
+    from tetra_tpu_torch.crypto import state as TST
     cfg = dict(mcc=262, mnc=105, cc=6)
+
+    def kw(pkg):
+        out = {}
+        if case == "frag":
+            msg = np.random.default_rng(5).integers(0, 2, 260).astype(
+                np.uint8)
+            out["frag_message"] = ((3, 2), msg)
+        if "voice" in case or "stolen" in case:
+            rng = np.random.default_rng(9)
+            frames = lambda: rng.integers(0, 2, (2, 137)).astype(np.uint8)
+            out["voice_slots"] = {2: frames, 3: frames}
+        if "stolen" in case:
+            out["stolen_slots"] = {(4, 2): "both", (6, 3): "first",
+                                   (9, 2): "first", (12, 3): "both"}
+        if "crypto" in case:
+            out["crypto"] = _cell_crypto(TST if pkg == "port" else JST,
+                                         cfg)
+        return out
+
     tb, trec = TCELL.downlink_bits(
         TCELL.CellConfig(**cfg), 300, start=TTdmaTime(mn=2, fn=1, tn=1),
-        payload_rng=np.random.default_rng(3), **kw)
+        payload_rng=np.random.default_rng(3), **kw("port"))
     jb, jrec = JCELL.downlink_bits(
         JCELL.CellConfig(**cfg), 300, start=JTdmaTime(mn=2, fn=1, tn=1),
-        payload_rng=np.random.default_rng(3), **kw)
+        payload_rng=np.random.default_rng(3), **kw("jax"))
     _same(tb, jb)
     assert [(r.kind, vars(r.time)) for r in trec] == \
         [(r.kind, vars(r.time)) for r in jrec]
-    assert {r.kind for r in trec} >= ({"sync", "ndb", "frag_start",
-                                       "frag_end"} if frag
-                                      else {"sync", "ndb"})
+    kinds = {r.kind for r in trec}
+    assert kinds >= {"sync", "ndb"}
+    assert ("frag_start" in kinds) == (case == "frag")
+    assert ("voice" in kinds) == (case != "signalling" and case != "frag"
+                                  and case != "crypto")
+    assert ("stch" in kinds) == ("stolen" in case)
     for a, b in zip(trec, jrec):
         _same(a.type1, b.type1)
-
-
-@pytest.mark.parametrize("arg", ["voice_slots", "stolen_slots", "crypto"])
-def test_downlink_bits_unported_args_raise(arg):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 13"):
-        TCELL.downlink_bits(TCELL.CellConfig(), 4, **{arg: {1: None}})
 
 
 def test_display_state_fields_equal():
@@ -287,15 +322,18 @@ def test_mac_state_struct_layout_equal(name):
     assert _layout(t) == _layout(j)
 
 
-@pytest.mark.parametrize("src", ["fleet.cpp", "macparse.cpp"])
+@pytest.mark.parametrize("src", ["fleet.cpp", "macparse.cpp",
+                                 "acelp_codec.cpp"])
 def test_native_source_copy_byte_equal(src):
-    """The fleet engine builds from the port's own copy of the C++ source,
-    which stays byte-equal to the JAX package's."""
+    """The fleet engine, the native MAC core and the ACELP codec build from
+    the port's own copies of the C++ sources, which stay byte-equal to the
+    JAX package's."""
     port = os.path.join(TFLEET._NATIVE, src)
     assert os.path.commonpath([port, os.path.join(ROOT, "tetra_tpu_torch")]) \
         == os.path.join(ROOT, "tetra_tpu_torch")
+    ref_dir = ("voice" if src == "acelp_codec.cpp" else "rx", "native")
     with open(port, "rb") as a, open(os.path.join(
-            ROOT, "tetra_tpu", "rx", "native", src), "rb") as b:
+            ROOT, "tetra_tpu", *ref_dir, src), "rb") as b:
         assert a.read() == b.read()
 
 
@@ -341,15 +379,14 @@ def test_host_copy_constant_equal(module, name):
 @pytest.mark.parametrize("module", sorted(HOST_COPIES))
 def test_host_copy_names_and_dataclasses_equal(module):
     """The same constants, and every dataclass with the same fields and
-    defaults (UpperMac's crypto_state aside: the port has no crypto yet)."""
+    defaults."""
     import dataclasses
     port, ref = HOST_COPIES[module]
     assert _constant_names(port) == _constant_names(ref)
     for n, v in vars(ref).items():
         if dataclasses.is_dataclass(v) and v.__module__ == ref.__name__:
             fields = lambda cls: [
-                (f.name, repr(f.default)) for f in dataclasses.fields(cls)
-                if f.name != "crypto_state"]
+                (f.name, repr(f.default)) for f in dataclasses.fields(cls)]
             assert fields(getattr(port, n)) == fields(v), n
 
 

@@ -3,8 +3,9 @@
 The JAX package `tetra_tpu` is the reference this port is held against.
 The port imports `torch` and nothing of `jax` or `tetra_tpu`: it keeps its
 own copies of the host-only modules it needs (params, core.taps,
-rx.tdma/display/native_mac, tx.cell/burst/fec_enc) and of the native C++
-fleet engine's source (csrc/host/).
+rx.tdma/display/native_mac/mac_pdu/llc/mle, tx.cell/burst/fec_enc,
+crypto.*) and of the native C++ sources: the fleet engine, the MAC core
+and the ACELP codec (csrc/host/).
 
 Every hand-written CUDA kernel lives under `csrc/` and is built with nvcc on
 first use (ops/_build.py).  Each kernel's wrapper runs the kernel on CUDA

@@ -122,9 +122,12 @@ def load():
 
 def host_library(stem: str, srcs: list[str], flags: list[str]) -> str:
     """Path of the host (g++) shared library built from srcs[0], which
-    includes srcs[1:].  It is built on first use under a name hashed from
-    the sources and flags, written under a temporary name and moved into
-    place as the CUDA library is.  A failed build raises."""
+    includes srcs[1:], by `g++ <flags> -shared -fPIC` (each caller passes
+    its JAX counterpart's flags, so both builds compute alike).  It is
+    built on first use under a name hashed from the sources and flags,
+    written under a temporary name and moved into place as the CUDA
+    library is.  A failed build raises."""
+    cmd = ["g++"] + flags + ["-shared", "-fPIC"]
     h = hashlib.sha256()
     for src in srcs:
         with open(src, "rb") as f:
@@ -136,8 +139,7 @@ def host_library(stem: str, srcs: list[str], flags: list[str]) -> str:
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
         try:
-            subprocess.run(["g++", "-O2", "-std=c++17", "-shared", "-fPIC"]
-                           + flags + ["-o", tmp, srcs[0]], check=True)
+            subprocess.run(cmd + ["-o", tmp, srcs[0]], check=True)
             os.replace(tmp, so)
         finally:
             if os.path.exists(tmp):

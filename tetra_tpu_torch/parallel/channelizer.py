@@ -5,7 +5,9 @@ A wideband capture at fs = N x 25 kHz splits into N channels of 50 kHz
 complex baseband (2x oversampled polyphase bank, hop N/2), then an 18/25
 polyphase resampler brings each to the demod's 36 kHz.  The tables are
 computed by the reference's numpy code; the fold + DFT + flip runs as the
-K4 kernel and the whole front end as K3 (ops/chan_kernel.py).
+K4 kernel and the whole front end as K3 (ops/chan_kernel.py).  resample()
+is the reference's public block resampler (any L/M; the audio output's
+8 kHz -> 48 kHz), a banded matrix product in plain torch.
 """
 
 from __future__ import annotations
@@ -134,6 +136,63 @@ def _resamp_matrix(L: int, M: int) -> tuple[np.ndarray, int, int]:
         for t in range(RS_TAPS_PER_PHASE):
             W[ZF + off + t, p] += coef[t]
     return W, B, ZF
+
+
+def _resample_matmul(xpp_r, xpp_i, Wm, n_q: int, B: int, M: int, L: int):
+    """xpp: (..., (n_q+B-1)*M) padded stream pair -> (..., n_q*L) outputs."""
+    shp = xpp_r.shape[:-1]
+
+    def run(x):
+        z = x.reshape(shp + (n_q + B - 1, M))
+        zb = torch.cat([z[..., k:k + n_q, :] for k in range(B)], dim=-1)
+        return (zb @ Wm).reshape(shp + (n_q * L,))
+
+    return run(xpp_r), run(xpp_i)
+
+
+def _resample_block(xr, xi, n_in: int, L: int, M: int):
+    """y[n] = sum_k x[base - k] h[r + k L] with base = floor(nM/L),
+    r = nM % L: a window running backward from base over a (taps-1)-zero
+    padded input, computed as the banded matmul of _resamp_matrix."""
+    Wnp, B, _ = _resamp_matrix(L, M)
+    n_out = (n_in - RS_TAPS_PER_PHASE) * L // M
+    n_q = -(-n_out // L)
+    need = (n_q + B - 1) * M
+    front = (B - 1) * M  # = ZF + pad: zero history + window alignment
+
+    def framed(x):
+        x = torch.cat([x.new_zeros(x.shape[:-1] + (front,)), x], dim=-1)
+        if x.shape[-1] < need:
+            return torch.cat(
+                [x, x.new_zeros(x.shape[:-1] + (need - x.shape[-1],))],
+                dim=-1)
+        return x[..., :need]
+
+    yr, yi = _resample_matmul(framed(xr), framed(xi),
+                              torch.from_numpy(Wnp).to(xr.device), n_q, B,
+                              M, L)
+    return yr[..., :n_out], yi[..., :n_out]
+
+
+def resample(iq: np.ndarray, L: int, M: int, device=None) -> np.ndarray:
+    """(C, T) complex at fs -> (C, ~T*L/M) complex at fs*L/M, computed on
+    `device` (the current CUDA device unless the caller asks for the CPU).
+    The banded matrix product is plain torch, as the reference computes it
+    outside any Pallas kernel."""
+    iq = np.atleast_2d(np.asarray(iq))
+    device = resolve_device(device)
+    xr = torch.from_numpy(iq.real.astype(np.float32)).to(device)
+    xi = torch.from_numpy(iq.imag.astype(np.float32)).to(device)
+    yr, yi = _resample_block(xr, xi, iq.shape[1], L, M)
+    return yr.cpu().numpy() + 1j * yi.cpu().numpy()
+
+
+def resample_50_to_36(iq: np.ndarray, device=None) -> np.ndarray:
+    return resample(iq, 18, 25, device)
+
+
+def resample_36_to_50(iq: np.ndarray, device=None) -> np.ndarray:
+    return resample(iq, 25, 18, device)
 
 
 @lru_cache(maxsize=8)

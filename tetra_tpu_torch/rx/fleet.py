@@ -86,8 +86,9 @@ def load():
     with _lock:
         if _lib is not None:
             return _lib
-        lib = ctypes.CDLL(host_library("tetra_fleet", [_SRC, _SRC_DEP],
-                                       ["-pthread", "-I", _NATIVE]))
+        lib = ctypes.CDLL(host_library(
+            "tetra_fleet", [_SRC, _SRC_DEP],
+            ["-O2", "-std=c++17", "-pthread", "-I", _NATIVE]))
         vp, i64 = ctypes.c_void_p, ctypes.c_int64
         lib.fleet_create.restype = vp
         lib.fleet_create.argtypes = [i64, vp, i64, vp, i64, vp, i64, i64]

@@ -98,6 +98,14 @@ class LowerMac:
                 if lag > 0:
                     self.phy.time.add_tn_bulk(lag)
                 self._resync_base = (c.time.copy(), slot_index)
+                # the SYNC PDU carries the crypto context's network identity
+                # and colour code (the reference updates tcd from the same
+                # parse, tetra_lower_mac.c:246-276 + tetra_crypto net info)
+                cs = self.upper.crypto_state
+                if cs is not None and (cs.mcc != c.mcc or cs.mnc != c.mnc
+                                       or cs.cc != c.colour_code):
+                    cs.cc = c.colour_code
+                    cs.update_network(c.mcc, c.mnc)
                 d.last_crc_fail = False
             else:
                 d.last_crc_fail = True
@@ -143,7 +151,7 @@ class LowerMac:
         """Sequential dispatch of pre-decoded blocks in burst/block order."""
         scramb = self.cell.scramb_init
         up = self.upper
-        if items and not up.events_enabled:
+        if items and not up.events_enabled and up.crypto_state is None:
             h = up._native_handle()
             if h is not False:
                 self._dispatch_native(h, items, decoded, bursts, scramb)

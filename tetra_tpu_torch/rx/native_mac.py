@@ -100,7 +100,8 @@ def load():
     with _lock:
         if _lib is not None:
             return _lib
-        lib = ctypes.CDLL(host_library("tetra_macparse", [_SRC], []))
+        lib = ctypes.CDLL(host_library("tetra_macparse", [_SRC],
+                                       ["-O2", "-std=c++17"]))
         vp, i64, u64 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_uint64
         lib.macparse_create.restype = vp
         lib.macparse_create.argtypes = []

@@ -12,9 +12,13 @@ Ported, each wideband (wideband=N: front end K3 per cycle) or narrowband
   unlocked), one fused FEC pass on the device for every channel's blocks
   and the per-channel lower/upper MAC (rx/lower_mac, rx/upper_mac).
 
-mode="exact" (ROADMAP Queue 1 item 12), mode="ff" (item 14), voice=True
-(item 13), mac_workers > 0 and keystore= (item 17) raise
-NotImplementedError.
+Voice and air-interface decryption plug in per channel as in the
+reference: a voice callback (voice.pipeline.VoicePipeline, or the shared
+voice_cb) on rx.mac[c].voice_cb or the fleet engine, and a
+crypto.state.CryptoState on rx.mac[c].upper.crypto_state.
+
+mode="exact" (ROADMAP Queue 1 item 12), mode="ff" (item 14), mac_workers
+> 0 and keystore= (item 17) raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -144,9 +148,14 @@ class TetraReceiver:
         no-ops (the reference pipelines fleet superblocks only); True in
         fleet mode is not ported (ROADMAP "Not ported").
 
+        voice: as in the reference, it selects worker-side voice pipelines
+        in the MAC pool (mac_workers) and is otherwise unused; per-channel
+        voice is a VoicePipeline on rx.mac[c].voice_cb (or voice_cb= for
+        every channel).
+
         Not ported yet: mode="exact" (ROADMAP Queue 1 item 12), mode="ff"
-        (item 14), voice=True (item 13), mac_workers > 0 and keystore=
-        (item 17): each raises NotImplementedError."""
+        (item 14), mac_workers > 0 and keystore= (item 17): each raises
+        NotImplementedError."""
         if mode != "fast":
             item = 14 if mode == "ff" else 12
             raise NotImplementedError(
@@ -160,10 +169,6 @@ class TetraReceiver:
             raise NotImplementedError(
                 "keystore: the pooled crypto path is not ported "
                 "(ROADMAP Queue 1 item 17)")
-        if voice:
-            raise NotImplementedError(
-                "voice=True: the voice pipeline is not ported "
-                "(ROADMAP Queue 1 item 13)")
         if link_profile not in ("tunnel", "pcie"):
             raise ValueError(f"link_profile={link_profile!r}: 'tunnel' or "
                              f"'pcie'")

@@ -1,6 +1,6 @@
 """Upper MAC: TMV-SAP dispatch, broadcast decoding, resources, fragments
-(port of tetra_tpu/rx/upper_mac.py, host NumPy; air-interface decryption
-is not ported yet: crypto_state stays None, ROADMAP Queue 1 item 13).
+(port of tetra_tpu/rx/upper_mac.py, host NumPy, with its air-interface
+decryption hooks: set crypto_state to a crypto.state.CryptoState).
 
 Host-side re-design of tetra_upper_mac.c: the device FEC pipeline delivers
 decoded type-1 bit arrays; this layer routes them by logical channel and PDU
@@ -69,6 +69,7 @@ def _num_fill_bits(bits: np.ndarray) -> int:
 @dataclass
 class UpperMac:
     display: DisplayState = field(default_factory=DisplayState)
+    crypto_state: object = None  # crypto.state.CryptoState | None
     fragslots: list[FragSlot] = field(
         default_factory=lambda: [FragSlot() for _ in range(FRAGSLOT_NR_SLOTS)])
     # mirrors of tetra_mac_state
@@ -85,18 +86,6 @@ class UpperMac:
     # it for -v); the list otherwise grows unboundedly in long runs.
     events: list = field(default_factory=list)
     events_enabled: bool = True
-
-    @property
-    def crypto_state(self):
-        """Air-interface decryption context: always None in the port."""
-        return None
-
-    @crypto_state.setter
-    def crypto_state(self, value):
-        if value is not None:
-            raise NotImplementedError(
-                "UpperMac.crypto_state: decryption is not ported yet "
-                "(ROADMAP Queue 1 item 13)")
 
     # -- fragment bookkeeping ------------------------------------------------
 
@@ -120,6 +109,8 @@ class UpperMac:
         for i, name in enumerate(p.BS_SERVICE_FLAGS):
             if name is not None:
                 setattr(d, name, bool(sid.bs_service_details & (1 << i)))
+        if self.crypto_state is not None:
+            self.crypto_state.update_from_sysinfo(sid)
         if self.events_enabled:
             self.events.append(("sysinfo", time.copy(), sid))
         return -1
@@ -139,8 +130,19 @@ class UpperMac:
         if rsd.fill_bits:
             nf = _num_fill_bits(bits)
             bits = bits[:len(bits) - nf]
-        # an encrypted payload stays encrypted (the reference's default: no
-        # keystore loaded, SURVEY.md section 2.7)
+        # encrypted payload decryption hooks in here (crypto module); the
+        # keystore-less path matches the reference default (keystore never
+        # loaded by the plugin, SURVEY.md section 2.7)
+        if self.crypto_state is not None and rsd.is_encrypted:
+            dec = self.crypto_state.try_decrypt_mac_element(
+                bits, time, tmpdu_offset)
+            if dec is not None:
+                bits = dec
+                rsd.is_encrypted = False
+                if rsd.chan_alloc_pres:
+                    cad, used = p.decode_chan_alloc(bits, tmpdu_offset)
+                    rsd.cad = cad
+                    tmpdu_offset += used
         if self.events_enabled:
             self.events.append(("resource", time.copy(), rsd))
         if rsd.addr.type == p.ADDR_TYPE_NULL:
@@ -309,7 +311,7 @@ class UpperMac:
         (the while-loop of tetra_lower_mac.c:383-405)."""
         if not crc_ok:
             return
-        if not self.events_enabled:
+        if not self.events_enabled and self.crypto_state is None:
             h = self._native_handle()
             if h is not False:
                 b = type1

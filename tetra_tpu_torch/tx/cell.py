@@ -1,8 +1,8 @@
 """Downlink cell simulator: generates a continuous TETRA downlink bit stream.
 
-A copy of tetra_tpu/tx/cell.py without its voice and crypto arms: the
-port's fixtures are signalling-only cells, and the voice channel coder is
-not ported yet (ROADMAP Queue 1 item 13).
+A copy of tetra_tpu/tx/cell.py, its voice, slot-stealing and crypto arms
+included (the speech channel coder is voice.channel, the keystreams
+crypto.state.CryptoState).
 
 The reference has no test fixtures at all (SURVEY.md section 4); this module
 is the golden TX the RX stack is validated against: SYNC bursts carrying
@@ -257,22 +257,26 @@ def downlink_bits(cfg: CellConfig, n_slots: int,
     tetra_lower_mac.c:118-123); every other slot carries a normal burst with
     NDB payload blocks.  Returns (bits (n_slots*510,), ground-truth records).
 
-    voice_slots, stolen_slots and crypto (traffic slots, slot stealing and
-    air-interface encryption in the reference) raise NotImplementedError:
-    they need the voice channel coder and the crypto modules, which the
-    port does not have yet (ROADMAP Queue 1 item 13).
+    voice_slots: optional {tn: voice frame generator} - those timeslots emit
+    traffic (NORM-1 bursts carrying speech channel-coded SCH/F payloads, with
+    AACH dl_usage marking the slot as traffic).  The generator is called with
+    no args and must return (2, 137) codec frame bits.
+
+    stolen_slots: optional set of (fn, tn) - voice slots at those times are
+    transmitted with training sequence 2 instead (clause 19.4.4 slot
+    stealing): both half blocks carry STCH signalling, the first announcing
+    the second via length indicator 0x3E.  A dict {(fn, tn): "both"|"first"}
+    selects per-slot whether both halves are stolen or only the first --
+    with "first" the second half block carries the slot's surviving speech
+    frame (frame 2) as a 216-bit half-slot speech block.
 
     frag_message: optional ((fn, tn), sdu_bits) - transmit sdu_bits as a
     fragmented TM-SDU: START (fills the first half block) + MAC-FRAG
     (second half block) at (fn, tn), then MAC-END on the same timeslot of
     the NEXT frame (21.4.3.1-3 fragmentation; fragslots are per-timeslot).
     """
-    for name, arg in (("voice_slots", voice_slots),
-                      ("stolen_slots", stolen_slots), ("crypto", crypto)):
-        if arg is not None:
-            raise NotImplementedError(
-                f"downlink_bits({name}=...): voice and crypto are not ported "
-                f"yet (ROADMAP Queue 1 item 13)")
+    from ..voice import channel as vchannel
+
     if payload_rng is None:
         payload_rng = np.random.default_rng(0)
     time = start.copy() if start else TdmaTime(mn=1, fn=1, tn=4)
@@ -282,14 +286,68 @@ def downlink_bits(cfg: CellConfig, n_slots: int,
     frag_pending = None  # (tn, remaining_bits) awaiting the MAC-END slot
     for _ in range(n_slots):
         time.add_tn(1)
-        aach = build_aach(dl_usage=2, ul_usage=0)
+        is_voice = (voice_slots is not None and time.tn in voice_slots
+                    and time.fn != 18 and not is_bsch(time))
+        aach = build_aach(dl_usage=5 if is_voice else 2, ul_usage=0)
         bbk5 = fec_enc.encode_block(aach, P.TPSAP_T_BBK, scramb)
+        if is_voice and stolen_slots and (time.fn, time.tn) in stolen_slots:
+            steal = (stolen_slots[(time.fn, time.tn)]
+                     if isinstance(stolen_slots, dict) else "both")
+            sdu1 = np.concatenate([
+                _uint_to_bits(2, 4),    # LLC: BL-UDATA
+                _uint_to_bits(2, 3),    # MLE pdisc: CMCE
+                _uint_to_bits(0x00, 5),  # CMCE: D-ALERT
+                payload_rng.integers(0, 2, 40).astype(np.uint8)])
+            stch1 = build_resource_pdu(ssi=0x654321, sdu_bits=sdu1,
+                                       second_half_stolen=(steal == "both"))
+            if steal == "both":
+                # stolen traffic slot: NORM-2 burst, both halves STCH
+                sdu2 = np.concatenate([
+                    _uint_to_bits(2, 4),
+                    _uint_to_bits(2, 3),
+                    _uint_to_bits(0x03, 5),  # CMCE: D-CONNECT ACK
+                    payload_rng.integers(0, 2, 40).astype(np.uint8)])
+                stch2 = build_resource_pdu(ssi=0x654321, sdu_bits=sdu2)
+                blk2_type5 = fec_enc.encode_block(stch2, P.TPSAP_T_NDB,
+                                                  scramb)
+                rec = dict(stch1=stch1, aach=aach, stch2=stch2)
+            else:
+                # first half stolen only: frame 2's speech survives in blk2
+                frames = np.asarray(voice_slots[time.tn](), np.uint8)
+                half3 = vchannel.encode_half_slot(frames.reshape(2, -1)[1])
+                blk2_type5 = fec_enc.scramble(half3, scramb)
+                rec = dict(stch1=stch1, aach=aach,
+                           frames=frames.reshape(2, -1))
+            b = burst_mod.build_norm_burst(
+                fec_enc.encode_block(stch1, P.TPSAP_T_NDB, scramb),
+                bbk5, blk2_type5, two_log_chan=True)
+            records.append(SlotRecord(time.copy(), "stch", rec))
+            out.append(b)
+            continue
+        if is_voice:
+            frames = np.asarray(voice_slots[time.tn](), np.uint8)
+            tx_frames = frames
+            if crypto is not None:
+                # air-interface voice encryption: XOR the CCK keystream over
+                # the two 137-bit codec frames before channel coding (the
+                # TX inverse of decrypt_voice_timeslot's post-decode sign
+                # flip, tetra_crypto.c:270-302); records keep the plaintext
+                ks = crypto.keystream_bits(crypto.cck, time, 137 * 2)
+                tx_frames = frames.reshape(2, 137) ^ ks.reshape(2, 137)
+            type3 = vchannel.encode_slot(tx_frames.reshape(-1))
+            type5 = fec_enc.scramble(type3, scramb)
+            b = burst_mod.build_norm_burst(
+                type5[:216], bbk5, type5[216:], two_log_chan=False)
+            records.append(SlotRecord(time.copy(), "voice",
+                                      dict(frames=frames, aach=aach)))
+            out.append(b)
+            continue
         want_frag = (frag_message is not None
                      and (time.fn, time.tn) == frag_message[0]
-                     and not is_bsch(time))
+                     and not is_bsch(time) and not is_voice)
         if want_frag or (frag_pending is not None
                          and frag_pending[0] == time.tn
-                         and not is_bsch(time)):
+                         and not is_bsch(time) and not is_voice):
             if want_frag:
                 msg = np.asarray(frag_message[1], np.uint8)
                 f1, f2 = msg[:81], msg[81:201]
@@ -314,9 +372,15 @@ def downlink_bits(cfg: CellConfig, n_slots: int,
             continue
         if is_bsch(time):
             sb1 = build_sync_pdu(cfg.cc, time, cfg.mcc, cfg.mnc)
+            # encrypted cells alternate the SYSINFO 17-bit arm between
+            # hyperframe number and CCK id (odd multiframes carry the key id)
+            alt_cck = (crypto is not None and crypto.cck is not None
+                       and time.mn % 2 == 1)
             sb2 = build_sysinfo_pdu(cfg.main_carrier, cfg.freq_band,
                                     cfg.hyperframe, cfg.la,
-                                    cfg.bs_service_details)
+                                    cfg.bs_service_details,
+                                    cck_id=(crypto.cck_id if alt_cck
+                                            else None))
             b = burst_mod.build_sync_burst(
                 fec_enc.encode_block(sb1, P.TPSAP_T_SB1, scramb),
                 bbk5,
@@ -332,7 +396,8 @@ def downlink_bits(cfg: CellConfig, n_slots: int,
                 _uint_to_bits(2, 3),    # MLE pdisc: CMCE
                 _uint_to_bits(0x0F, 5),  # CMCE: D-SDS DATA
                 payload])
-            ndb2 = build_resource_pdu(ssi=0x123456, sdu_bits=sdu)
+            ndb2 = build_resource_pdu(ssi=0x123456, sdu_bits=sdu,
+                                      crypto=crypto, time=time)
             b = burst_mod.build_norm_burst(
                 fec_enc.encode_block(ndb1, P.TPSAP_T_NDB, scramb),
                 bbk5,

@@ -1,9 +1,10 @@
-"""Host-side TX fixtures for the port (numpy; no jax, no torch).
+"""Host-side TX fixtures for the port (numpy; no jax).
 
 Copies of tetra_tpu/tx/wideband.synthesize_wideband and of the benchmark's
 heterogeneous_fleet_iq (bench.py), whose originals import jax through the
 modulator.  Same code, same seeds, same outputs.  The cell bit streams come
-from the port's own tx/cell.py.
+from the port's own tx/cell.py; voice_cell_air adds traffic, slot stealing
+and TEA1 encryption to cell_air's multiplex.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ import numpy as np
 
 from .. import params as P
 from ..core.taps import root_raised_cosine
+from ..crypto.state import KEYTYPE_CCK_SCK, KSG_TEA1, CryptoState, KeyStore
 from ..rx.tdma import TdmaTime
 from .cell import CellConfig, downlink_bits
 
@@ -98,9 +100,21 @@ def cell_air(channels: int, seconds: float, n_cells: int = 8,
     T50 * channels/2 points, and one large prime factor there turns
     seconds into minutes."""
     n_slots = int(seconds / 0.014167) + 4
-    streams = [downlink_bits(CellConfig(mcc=262, mnc=100 + i, cc=1 + i),
-                             n_slots, start=TdmaTime(mn=2, fn=14, tn=1))[0]
+    streams = [downlink_bits(_cell_config(i), n_slots,
+                             start=TdmaTime(mn=2, fn=14, tn=1))[0]
                for i in range(n_cells)]
+    return _multiplex(streams, channels, seed)
+
+
+def _cell_config(i: int) -> CellConfig:
+    """Cell i of the fixtures' multiplex: MCC 262, MNC 100 + i, CC 1 + i."""
+    return CellConfig(mcc=262, mnc=100 + i, cc=1 + i)
+
+
+def _multiplex(streams: list, channels: int, seed: int) -> np.ndarray:
+    """Carrier c carries streams[c % len(streams)], cut to a 7-smooth 50 kHz
+    length, per-carrier CFO uniform in +-400 Hz, 25 dB SNR."""
+    n_cells = len(streams)
     # synthesize_wideband takes T36 = L - 64 rounded down to 36 k, and
     # T50 = 25 k
     k = (min(len(s) for s in streams) - (P.RRC_TAP_COUNT - 1)) // 36
@@ -111,6 +125,72 @@ def cell_air(channels: int, seconds: float, n_cells: int = 8,
     cfo = np.random.default_rng(seed).uniform(-400.0, 400.0, channels)
     return synthesize_wideband(bitmat, channels, cfo_hz=cfo, snr_db=25.0,
                                seed=seed)
+
+
+def cell_keystore(cells, seed: int = 7) -> str:
+    """A text keystore (the format crypto.state.KeyStore.load reads) giving
+    each of the fixtures' `cells` a TEA1 network and a seeded 80-bit CCK,
+    key number 3."""
+    rng = np.random.default_rng(seed)
+    lines = ["# TEA1 common cipher keys of the fixture cells"]
+    for i in cells:
+        cfg = _cell_config(i)
+        key = bytes(rng.integers(0, 256, 10, dtype=np.uint8)).hex().upper()
+        lines += [f"network mcc {cfg.mcc} mnc {cfg.mnc} ksg_type {KSG_TEA1} "
+                  f"security_class 2",
+                  f"key mcc {cfg.mcc} mnc {cfg.mnc} addr 0 key_type "
+                  f"{KEYTYPE_CCK_SCK} key_num 3 key {key}"]
+    return "\n".join(lines) + "\n"
+
+
+def _tx_crypto(store: KeyStore, cfg: CellConfig) -> CryptoState:
+    """The base station's cipher state for cfg: the identity its SYNC and
+    SYSINFO PDUs carry, and CCK number 3."""
+    cs = CryptoState(store=store)
+    cs.cc, cs.la, cs.cn, cs.hn = (cfg.cc, cfg.la, cfg.main_carrier,
+                                  cfg.hyperframe)
+    cs.cck_id = 3
+    cs.update_network(cfg.mcc, cfg.mnc)
+    if cs.cck is None:
+        raise ValueError(f"keystore has no CCK 3 for MNC {cfg.mnc}")
+    return cs
+
+
+def voice_cell_air(channels: int, seconds: float, n_cells: int = 8,
+                   keystore: str | None = None, encrypted=(),
+                   seed: int = 7):
+    """cell_air's multiplex with traffic: every cell carries voice on
+    timeslot 2 (seeded random 2 x 137-bit codec frames), a few stolen slots
+    per cell of both kinds (both halves, and the first half only, whose
+    second half keeps one speech frame), and the cells in `encrypted` are
+    TEA1-encrypted (voice and MAC-RESOURCE SDUs, SYSINFO alternating its
+    hyperframe and CCK-id arms) with their CCK from the text keystore at
+    path `keystore` (cell_keystore writes one).
+
+    Returns (wide, records): wide as cell_air's, records[i] the
+    tx.cell.SlotRecord list of cell i (slot j starts at 36 kHz sample
+    510 j of its carrier; "voice" records and the "stch" records of
+    first-half steals carry the plaintext frames)."""
+    store = KeyStore.load(keystore) if encrypted else None
+    n_slots = int(seconds / 0.014167) + 4
+    streams, records = [], []
+    for i in range(n_cells):
+        cfg = _cell_config(i)
+        rng = np.random.default_rng(seed * 1000 + i)
+        frames = lambda rng=rng: rng.integers(0, 2, (2, 137)).astype(np.uint8)
+        stolen = {(3 + i % 5, 2): "first", (10 + i % 6, 2): "both",
+                  (16, 2): "first" if i % 2 else "both"}
+        # the first SYNC bursts at 0.4 s and 1.4 s of air: an encrypted
+        # cell's receiver, locked by the first, learns the hyperframe
+        # number from it and the CCK id from the second
+        bits, recs = downlink_bits(
+            cfg, n_slots, start=TdmaTime(mn=2, fn=11, tn=1),
+            payload_rng=np.random.default_rng(seed * 1000 + 500 + i),
+            voice_slots={2: frames}, stolen_slots=stolen,
+            crypto=_tx_crypto(store, cfg) if i in encrypted else None)
+        streams.append(bits)
+        records.append(recs)
+    return _multiplex(streams, channels, seed), records
 
 
 def staged_windows(wide: np.ndarray, advance: int, wide_len: int,

@@ -1,0 +1,1 @@
+"""voice layer of the PyTorch/CUDA port (mirrors tetra_tpu.voice)."""
