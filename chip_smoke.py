@@ -42,6 +42,33 @@ Phases, each printing one line (any failure raises and exits non-zero):
    the device ops of one decode_slot call) carries the rate, rt_margin
    and stage times beside slice_nonfleet's, and ms per pipeline call
    split into channel decode and ACELP.
+6. slice_modes: the CLI's --wideband N --demod ff/exact host path on the
+   same 256-carrier air scaled to full scale: channelizer.channelize (K4
+   on the card, exactly one launch over the whole capture, ~180,000 rows,
+   its output held against fold_dft_plain on the same rows at K4's limit)
+   and resample_50_to_36,
+   then TetraReceiver(256, mode=m, events=False) fed 4096-sample blocks,
+   "ff" over 3.6 s and "exact" (the per-sample parity chain, a few
+   hundred thousand small device ops a block) over the first 2.0 s, 1.5 s
+   of warm-up each.  Gates per mode: > 90% of channels locked and > 90%
+   showing their own cell's MCC/MNC with all 8 cells decoded, crc_ok >
+   3 x crc_fail after warm-up, > 90% passing quality_ok, K4 launched by
+   channelize and no kernel launched by the receiver.  It prints ms per
+   block split into demod, burst sync, FEC and MAC, rt_margin, and the
+   channelize and resample times.  Then both chains, from the warm state,
+   run one block on the card and on the CPU: dibits and valid identical
+   on >= 99% of channels, floats within TOL_MODES_FLOAT on those (a
+   share within the tolerance and a limit on every slot), and the exact
+   chain's float check must fail a control run on the block rounded to
+   float16.  Then
+   the CLI round trip as subprocesses on the card: tetra_tx writes a
+   1-channel capture and an 8-carrier --wideband capture (cells on
+   carriers 0, 3, 5; K4's matrix-DFT kernel, which 8 channels take, is
+   held against its plain version on that capture's rows); tetra_rx
+   decodes the first with --demod fast, ff
+   and exact and the second with --demod ff; each must lock and show the
+   cell's MCC/MNC in its summary JSON.  The exact chain's device ops per
+   block are counted in a profiler window at the end.
 
 K3's row also carries its second kernel, the resample, timed alone on
 K4's output (resample_ms, 9 runs of 20 launches with min-max, and
@@ -60,8 +87,10 @@ Each kernel row carries its bound on the card (bound_ms: the larger of its
 bytes over the HBM rate and its operations over the FP32 rate, from this
 run's shapes; bound_by says which), its launches per superblock on the
 fleet slice, its launches on the per-channel slice
-(launches_nonfleet, one per 128 ms cycle), and library_ms: the time of PyTorch library calls computing the same
-function where they exist, else null.  For K4 two such yardsticks are
+(launches_nonfleet, one per 128 ms cycle), its launches on slice_modes'
+in-process path (launches_modes: K4 from channelize only), and
+library_ms: the time of PyTorch library calls computing the same function
+where they exist, else null.  For K4 two such yardsticks are
 timed, each a fold then one torch.fft.fft and the flip: the fold as an
 einsum over a strided view of the input, and as dilated depthwise conv1d
 with cuDNN's algorithm chosen by timing; library_ms is the faster, and
@@ -88,7 +117,8 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from tetra_tpu_torch import exact_float32
+from tetra_tpu_torch import convert, exact_float32
+from tetra_tpu_torch.apps.tetra_rx import load_iq
 from tetra_tpu_torch.crypto.state import CryptoState, KeyStore
 from tetra_tpu_torch.ops import _build
 from tetra_tpu_torch.ops import chan_kernel as CK
@@ -120,6 +150,25 @@ ENCRYPTED = (4, 5, 6, 7)              # TEA1 cells of the voice slice
 VOICE_TS = 2                          # the voice slice's traffic timeslot
 MIN_VOICE_SHARE = 0.8                 # voice slots decoded after warm-up
 MAX_BAD_SHARE = 0.02                  # bad frames among decoded slots
+MODES_SECONDS = {"ff": 3.6, "exact": 2.0}   # air each mode's receiver is fed
+MODES_BLOCK = 4096                    # the CLI's --block
+TOL_MODES_CHANNELS = 0.99  # card vs CPU: share of identical dibits/valid
+# card vs CPU, on the channels with identical dibits/valid: (tolerance,
+# share of their valid slots' symbols and dist within it, limit on every
+# slot).  ff: all within 1e-3 (the CPU tests read <= 2.3e-4 against JAX:
+# a symbol position p ~ 4600 carries its fraction at float32's 4.9e-4
+# ulp).  exact: >= 99% within 1e-4 and all within 2e-2: where
+# floor(mu * 128) lands on the other side of an integer the interpolator
+# takes the adjacent polyphase row (a step of up to ~1e-2) and the timing
+# loop carries it on; tests/test_torch_demod_exact.py holds every slot to
+# the same 2e-2.  The H100 (700 W) read 0.9973 within 1e-4 and 9.8e-3 at
+# most; the control below (the block rounded to float16, TF32's 10-bit
+# mantissa, on the CPU) read 0.63-0.66 on 8 channels of the tests' air.
+TOL_MODES_FLOAT = {"ff": (1e-3, 1.0, 1e-3), "exact": (1e-4, 0.99, 2e-2)}
+# modes whose float check must tell the float16 control apart (ff's 1e-3
+# is wider than what float16 inputs move its symbols: <= 4.9e-4)
+CONTROL_FAILS = ("exact",)
+CLI_SLOTS = 120            # the round trip's 1-channel capture (1.7 s)
 
 # limits of kernel vs plain on identical inputs (float32, different
 # summation orders and cosf/sinf/rsqrtf vs the CPU-style library calls)
@@ -469,6 +518,30 @@ def phase_demod_kernels(dev) -> tuple[list[dict], list]:
     return rows, jobs
 
 
+def k4_rows(x: np.ndarray, n_ch: int, dev) -> list:
+    """K4's input rows for a whole wideband capture x, as
+    channelizer.channelize builds them: (need, n_ch/2) float32 re, im."""
+    hop = n_ch // 2
+    n_out = (len(x) - n_ch * CH.TAPS_PER_BRANCH) // hop + 1
+    need = n_out + 2 * CH.TAPS_PER_BRANCH - 1
+    return [torch.from_numpy(np.ascontiguousarray(
+        part, np.float32)[:need * hop].reshape(need, hop)).to(dev)
+        for part in (x.real, x.imag)]
+
+
+def k4_check(zr, zi, n_ch: int, yk) -> tuple[tuple, float, float]:
+    """K4's output yk on rows zr/zi against fold_dft_plain on the same rows,
+    within TOL_FRONT_REL of the plain output's RMS.  Returns the plain
+    output, the largest error and the RMS."""
+    yp = CK.fold_dft_plain(zr, zi, n_ch)
+    torch.cuda.synchronize()
+    rms = float(torch.sqrt((yp[0] ** 2 + yp[1] ** 2).mean()))
+    err = max(maxerr(yk[0], yp[0]), maxerr(yk[1], yp[1]))
+    check(err <= TOL_FRONT_REL * rms, f"K4 at n_ch={n_ch}, {zr.shape[0]} "
+          f"rows: error {err} vs rms {rms}")
+    return yp, err, rms
+
+
 def phase_front_kernels(dev, wide: np.ndarray) -> tuple[list[dict], list]:
     """K4 and K3 against their plain versions over two streamed blocks of
     the synthesized wideband air.  Returns the rows and the profiler jobs
@@ -496,11 +569,7 @@ def phase_front_kernels(dev, wide: np.ndarray) -> tuple[list[dict], list]:
     err3 = max(maxerr(rk[0], rp[0]), maxerr(rk[1], rp[1]))
     check(err3 <= TOL_FRONT_REL * rms, f"K3 error {err3} vs rms {rms}")
     yk = CK.fold_dft(z[0], z[1], N_CH)
-    yp = CK.fold_dft_plain(z[0], z[1], N_CH)
-    torch.cuda.synchronize()
-    rms4 = float(torch.sqrt((yp[0] ** 2 + yp[1] ** 2).mean()))
-    err4 = max(maxerr(yk[0], yp[0]), maxerr(yk[1], yp[1]))
-    check(err4 <= TOL_FRONT_REL * rms4, f"K4 error {err4} vs rms {rms4}")
+    yp, err4, rms4 = k4_check(z[0], z[1], N_CH, yk)
     libs = {}
     for label, lib in K4_LIBRARY.items():
         yl = lib(z[0], z[1], N_CH)
@@ -596,11 +665,7 @@ def phase_slice(dev, wide: np.ndarray) -> dict:
     fs = N_CH * 25_000
     warm = int(1.5 * fs / sb_adv) + 1
     check(n_super - warm >= 2, f"{n_super} superblocks, {warm} warm-up")
-    wrappers = {"K1 agc_fll_rrc": DK.agc_fll_rrc, "K2 mm_costas": MK.mm_costas,
-                "K3 fold_dft_resample": CK.fold_dft_resample,
-                "K4 fold_dft": CK.fold_dft}
-    for w in wrappers.values():
-        w.launches = 0
+    wrappers = zero_launches()
     for s in range(warm):
         rx.process_wideband_staged(*staged[s])
     ok0 = sum(rx.crc_counts(c)[0] for c in range(N_CH))
@@ -613,7 +678,7 @@ def phase_slice(dev, wide: np.ndarray) -> dict:
         rx.process_wideband_staged(*staged[s])
         walls.append(time.perf_counter() - ts)
     dt = time.perf_counter() - t0
-    launches = {name: w.launches for name, w in wrappers.items()}
+    launches = read_launches(wrappers)
     n_locked = sum(rx.locked(c) for c in range(N_CH))
     oks = sum(rx.crc_counts(c)[0] for c in range(N_CH)) - ok0
     fails = sum(rx.crc_counts(c)[1] for c in range(N_CH)) - fail0
@@ -670,6 +735,79 @@ class StageClock:
         self._saved = []
 
 
+# host-clock stages of the receiver's decode, after its demod
+DECODE_STAGES = [
+    (TetraReceiver, "_sync_bursts", "burst sync + device acquire"),
+    (LM, "decode_bursts_multi", "FEC"),
+    (LM.LowerMac, "_dispatch_decoded", "MAC dispatch")]
+
+
+def drive_receiver(rx, feed, blocks: list, n_warm: int, n_ch: int,
+                   what: str, unit: str, stages: list, rest: str,
+                   inner=(), at_warm=None) -> dict:
+    """Drive a per-channel receiver: feed(block) over blocks[:n_warm]
+    untimed, at_warm(), then each later block timed, with the host-clock
+    time per block of stages (owner, name, stage; what they leave of the
+    wall under `rest`) and of inner stages nested inside them.  Counts the
+    kernels' launches from the first block on, and checks the decode gates
+    after warm-up: > 90% of channels locked, > 90% showing their own cell's
+    MCC/MNC with all N_CELLS cells shown, crc_ok > 3 x crc_fail, > 90%
+    passing quality_ok."""
+    wrappers = zero_launches()
+    for block in blocks[:n_warm]:
+        feed(block)
+    ok0 = sum(rx.crc_counts(c)[0] for c in range(n_ch))
+    fail0 = sum(rx.crc_counts(c)[1] for c in range(n_ch))
+    if at_warm is not None:
+        at_warm()
+    clock, inner_clock = StageClock(), StageClock()
+    for owner, name, stage in stages:
+        clock.wrap(owner, name, stage)
+    for owner, name, stage in inner:
+        inner_clock.wrap(owner, name, stage)
+    walls = []
+    try:
+        for block in blocks[n_warm:]:
+            ts = time.perf_counter()
+            feed(block)
+            walls.append(time.perf_counter() - ts)
+    finally:
+        inner_clock.close()
+        clock.close()
+    launches = read_launches(wrappers)
+    n_locked = sum(rx.locked(c) for c in range(n_ch))
+    oks = sum(rx.crc_counts(c)[0] for c in range(n_ch)) - ok0
+    fails = sum(rx.crc_counts(c)[1] for c in range(n_ch)) - fail0
+    shown = [(rx.display(c).mcc, rx.display(c).mnc) for c in range(n_ch)]
+    right_cell = sum(s == (262, 100 + c % N_CELLS)
+                     for c, s in enumerate(shown))
+    cells = {s for s in shown if s[0] == 262}
+    quality = sum(rx.quality_ok(c) for c in range(n_ch))
+    check(n_locked > 0.9 * n_ch, f"{what}: only {n_locked}/{n_ch} locked")
+    check(oks > 3 * fails and oks > 0, f"{what}: crc ok {oks} vs fail "
+          f"{fails}")
+    check(right_cell > 0.9 * n_ch and len(cells) == N_CELLS,
+          f"{what}: {right_cell} channels show their cell, cells {cells}")
+    check(quality > 0.9 * n_ch, f"{what}: only {quality}/{n_ch} pass "
+          f"quality_ok")
+    n_t = len(walls)
+    mean_ms = float(np.mean(walls)) * 1e3
+    stage_ms = {k: v * 1e3 / n_t for k, v in clock.sec.items()}
+    stage_ms[rest] = mean_ms - sum(stage_ms.values())
+    return {f"{unit}s_timed": n_t, f"{unit}_wall_ms": mean_ms,
+            f"{unit}_wall_min_ms": min(walls) * 1e3,
+            f"{unit}_wall_max_ms": max(walls) * 1e3,
+            f"stage_ms_per_{unit}": stage_ms,
+            "inner": {stage: {f"ms_per_{unit}": sec * 1e3 / n_t,
+                              "calls": inner_clock.calls[stage],
+                              "ms_per_call": sec * 1e3
+                              / max(1, inner_clock.calls[stage])}
+                      for stage, sec in inner_clock.sec.items()},
+            "locked": n_locked, "crc_ok": oks, "crc_fail": fails,
+            "right_cell": right_cell, "cells": len(cells),
+            "quality_ok": quality, "launches": launches}
+
+
 def phase_slice_nonfleet(dev, wide: np.ndarray, n_ch: int = N_CH,
                          attach=None, stages=(), at_warm=None) -> dict:
     """The per-channel receiver as the CLI builds it, fed host cf32 chunks
@@ -691,89 +829,40 @@ def phase_slice_nonfleet(dev, wide: np.ndarray, n_ch: int = N_CH,
           f"{n_cyc} cycles, {warm} warm-up: under 2 s timed")
     chunks = [wide[:wl - adv]] + [wide[wl - adv + k * adv:wl + k * adv]
                                   for k in range(n_cyc)]
-    wrappers = {"K1 agc_fll_rrc": DK.agc_fll_rrc, "K2 mm_costas": MK.mm_costas,
-                "K3 fold_dft_resample": CK.fold_dft_resample,
-                "K4 fold_dft": CK.fold_dft}
-    for w in wrappers.values():
-        w.launches = 0
-    rx.process_wideband(chunks[0])
-    for k in range(1, warm + 1):
-        rx.process_wideband(chunks[k])
-    ok0 = sum(rx.crc_counts(c)[0] for c in range(n_ch))
-    fail0 = sum(rx.crc_counts(c)[1] for c in range(n_ch))
-    if at_warm is not None:
-        at_warm()
-    clock, fec_clock = StageClock(), StageClock()
-    clock.wrap(R, "_wideband_step", "device step + fetch")
-    clock.wrap(TetraReceiver, "_fetch", "device step + fetch")
-    clock.wrap(TetraReceiver, "_sync_bursts", "burst sync + device acquire")
-    clock.wrap(LM, "decode_bursts_multi", "FEC")
-    clock.wrap(LM.LowerMac, "_dispatch_decoded", "MAC dispatch")
-    # inside the FEC stage: the fused decode call (its rows built, moved to
-    # the card, decoded and fetched) and, inside that, the decode's torch
-    # ops as the host issues them
-    fec_clock.wrap(FEC, "decode_blocks_mixed", "decode_blocks_mixed")
-    fec_clock.wrap(FEC, "_decode_mixed_core", "decode ops issued")
-    for owner, name, stage in stages:
-        fec_clock.wrap(owner, name, stage)
-    walls = []
-    try:
-        for k in range(warm + 1, n_cyc + 1):
-            ts = time.perf_counter()
-            rx.process_wideband(chunks[k])
-            walls.append(time.perf_counter() - ts)
-    finally:
-        fec_clock.close()
-        clock.close()
-    launches = {name: w.launches for name, w in wrappers.items()}
-    n_locked = sum(rx.locked(c) for c in range(n_ch))
-    oks = sum(rx.crc_counts(c)[0] for c in range(n_ch)) - ok0
-    fails = sum(rx.crc_counts(c)[1] for c in range(n_ch)) - fail0
-    right_cell = sum(rx.display(c).mcc == 262
-                     and rx.display(c).mnc == 100 + c % N_CELLS
-                     for c in range(n_ch))
-    quality = sum(rx.quality_ok(c) for c in range(n_ch))
+    # the inner stages: inside the FEC stage, the fused decode call (its
+    # rows built, moved to the card, decoded and fetched) and, inside
+    # that, the decode's torch ops as the host issues them
+    fec = ("decode_blocks_mixed", "decode ops issued")
+    res = drive_receiver(
+        rx, rx.process_wideband, chunks, warm + 1, n_ch, "per-channel",
+        "cycle", [(R, "_wideband_step", "device step + fetch"),
+                  (TetraReceiver, "_fetch", "device step + fetch"),
+                  *DECODE_STAGES],
+        "rest (framing, upload, demod host work)",
+        inner=[(FEC, "decode_blocks_mixed", fec[0]),
+               (FEC, "_decode_mixed_core", fec[1]), *stages],
+        at_warm=at_warm)
+    inner = res.pop("inner")
     const = [len(rx.constellation(c)[0]) for c in range(n_ch)
              if rx.locked(c)]
-    check(n_locked > 0.9 * n_ch, f"only {n_locked}/{n_ch} channels locked")
-    check(oks > 3 * fails and oks > 0, f"crc ok {oks} vs fail {fails}")
-    check(right_cell > 0.9 * n_ch, f"only {right_cell} channels show their "
-          f"cell's MCC/MNC")
-    check(quality > 0.9 * n_ch, f"only {quality}/{n_ch} channels pass "
-          f"quality_ok")
     check(all(n > 0 for n in const),
           f"{sum(n == 0 for n in const)} locked channels show no "
           f"constellation (K2's full form)")
-    for name, n in launches.items():
+    for name, n in res["launches"].items():
         check(n > 0, f"{name} was not launched on the per-channel path")
     check(rx.acquire_scans > 0, "device_acquire_scan never ran")
-    air = adv / fs
-    n_t = len(walls)
-    stage_ms = {k: v * 1e3 / n_t for k, v in clock.sec.items()}
-    stage_ms["rest (framing, upload, demod host work)"] = \
-        float(np.mean(walls)) * 1e3 - sum(stage_ms.values())
-    fec_ms = {k: fec_clock.sec[k] * 1e3 / n_t
-              for k in ("decode_blocks_mixed", "decode ops issued")}
-    extra = {stage: dict(ms_per_cycle=fec_clock.sec[stage] * 1e3 / n_t,
-                         calls=fec_clock.calls[stage],
-                         ms_per_call=fec_clock.sec[stage] * 1e3
-                         / max(1, fec_clock.calls[stage]))
-             for _, _, stage in stages}
-    return dict(channels=n_ch, t50=T50, cycles_driven=n_cyc,
-                cycles_timed=n_t, cycle_air_ms=air * 1e3,
-                wideband_msps=n_t * adv / sum(walls) / 1e6,
-                rt_margin=air / float(np.mean(walls)),
-                cycle_wall_ms=float(np.mean(walls)) * 1e3,
-                cycle_wall_min_ms=min(walls) * 1e3,
-                cycle_wall_max_ms=max(walls) * 1e3,
-                stage_ms_per_cycle=stage_ms, fec_ms_per_cycle=fec_ms,
-                locked=n_locked, crc_ok=oks, crc_fail=fails,
-                right_cell=right_cell, quality_ok=quality,
+    air_ms = adv / fs * 1e3
+    return dict(res, channels=n_ch, t50=T50, cycles_driven=n_cyc,
+                cycle_air_ms=air_ms,
+                wideband_msps=adv / res["cycle_wall_ms"] / 1e3,
+                rt_margin=air_ms / res["cycle_wall_ms"],
+                fec_ms_per_cycle={k: inner[k]["ms_per_cycle"] for k in fec},
                 constellation_channels=len(const),
-                acquire_scans=rx.acquire_scans, launches=launches,
+                acquire_scans=rx.acquire_scans,
                 launches_per_cycle={k: v / n_cyc
-                                    for k, v in launches.items()},
-                warm_cycles=warm, advance=adv, fs=fs, stages=extra)
+                                    for k, v in res["launches"].items()},
+                warm_cycles=warm, advance=adv, fs=fs,
+                stages={stage: inner[stage] for _, _, stage in stages})
 
 
 class SpyDecoder:
@@ -1002,6 +1091,210 @@ def decode_slot_device_ops(dev) -> dict:
                                if "memcpy" in e.key.lower()))
 
 
+def kernel_wrappers() -> dict:
+    """Each kernel's wrapper, which counts its launches."""
+    return {"K1 agc_fll_rrc": DK.agc_fll_rrc, "K2 mm_costas": MK.mm_costas,
+            "K3 fold_dft_resample": CK.fold_dft_resample,
+            "K4 fold_dft": CK.fold_dft}
+
+
+def zero_launches() -> dict:
+    wrappers = kernel_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    return wrappers
+
+
+def read_launches(wrappers: dict) -> dict:
+    return {name: w.launches for name, w in wrappers.items()}
+
+
+def run_mode(dev, iq: np.ndarray, mode: str, seconds: float,
+             n_ch: int) -> tuple[dict, TetraReceiver]:
+    """TetraReceiver(n_ch, mode=mode) over the first `seconds` of the
+    36 kHz channels iq (n_ch, T) in MODES_BLOCK blocks, timed per block
+    after WARM_SECONDS, with the decode gates and no kernel launched."""
+    B = MODES_BLOCK
+    n_blk = int(seconds * 36_000) // B
+    warm = int(WARM_SECONDS * 36_000 / B) + 1
+    check(n_blk - warm >= 3, f"{mode}: {n_blk} blocks, {warm} warm-up")
+    rx = TetraReceiver(n_ch, mode=mode, events=False, device=dev)
+    res = drive_receiver(
+        rx, rx.process, [iq[:, k * B:(k + 1) * B] for k in range(n_blk)],
+        warm, n_ch, mode, "block",
+        [(rx.demod, "demod_block", "demod (ops issued + fetch)"),
+         (TetraReceiver, "_fetch", "demod (ops issued + fetch)"),
+         *DECODE_STAGES], "rest (slicing, dibit unpacking, quality)")
+    del res["inner"]
+    check(not any(res["launches"].values()),
+          f"{mode}: the receiver launched kernels {res['launches']}")
+    air_ms = B / 36.0
+    return dict(res, mode=mode, channels=n_ch, block=B, blocks_driven=n_blk,
+                block_air_ms=air_ms,
+                rt_margin=air_ms / res["block_wall_ms"]), rx
+
+
+def agreement(got: dict, ref: dict, tol: float) -> dict:
+    """Two demod outputs (on the CPU): the share of channels with identical
+    dibits and valid, and on those channels' valid slots the largest
+    symbol/dist difference and the share within tol."""
+    same = ((got["dibits"] == ref["dibits"]).all(dim=1)
+            & (got["valid"] == ref["valid"]).all(dim=1))
+    v = ref["valid"] & same[:, None]
+    diff = torch.stack([(got[k] - ref[k]).abs()[v]
+                        for k in ("sym_re", "sym_im", "dist")])
+    return dict(channels_identical=float(same.float().mean()),
+                max_abs_err=float(diff.max()),
+                share_within_tol=float((diff <= tol).float().mean()))
+
+
+def card_vs_cpu(mode: str, mod, state, block: np.ndarray) -> dict:
+    """One block through a demod chain from the same state on the card and
+    on the CPU, held to TOL_MODES_CHANNELS and TOL_MODES_FLOAT; and the
+    control, the CPU run on the block rounded to float16, which the float
+    check must fail for the modes in CONTROL_FAILS."""
+    fields = convert.state_to_numpy(state)
+
+    def on_cpu(x):
+        cpu = convert.state_from_numpy(fields, "cpu", type(state))
+        return mod.demod_block(cpu, x)[1]
+    _, og = mod.demod_block(state, block)
+    oc = on_cpu(block)
+    tol, need, cap = TOL_MODES_FLOAT[mode]
+    res = agreement({k: v.cpu() for k, v in og.items()}, oc, tol)
+    check(res["channels_identical"] >= TOL_MODES_CHANNELS,
+          f"{mode}: card and CPU agree on {res['channels_identical']:.4f} "
+          f"of channels")
+    check(res["share_within_tol"] >= need and res["max_abs_err"] <= cap,
+          f"{mode}: card vs CPU floats within {tol} on "
+          f"{res['share_within_tol']:.4f} of the slots (max "
+          f"{res['max_abs_err']}, limit {cap})")
+    half = (block.real.astype(np.float16).astype(np.float32)
+            + 1j * block.imag.astype(np.float16).astype(np.float32))
+    control = agreement(on_cpu(half.astype(np.complex64)), oc, tol)
+    if mode in CONTROL_FAILS:
+        check(control["share_within_tol"] < need,
+              f"{mode}: the float16 control passes the float check "
+              f"({control})")
+    return dict(res, tol=tol, share_needed=need, max_allowed=cap,
+                float16_control=control)
+
+
+def run_cli(app: str, *args: str) -> tuple[dict | list, float]:
+    """`python -m tetra_tpu_torch.apps.<app> args` on the card (the apps'
+    default device), from this checkout; returns its last stdout line as
+    JSON and its wall time."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root)
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", f"tetra_tpu_torch.apps.{app}",
+                          *args], cwd=root, env=env, capture_output=True,
+                         text=True, timeout=300)
+    wall = time.perf_counter() - t0
+    check(res.returncode == 0, f"{app} {args} failed:\n{res.stderr[-2000:]}")
+    return json.loads(res.stdout.strip().splitlines()[-1]), wall
+
+
+def cli_round_trip(dev) -> dict:
+    """tetra_tx -> tetra_rx as subprocesses on the card: a 1-channel capture
+    decoded by each --demod, an 8-carrier wideband one by --demod ff.  At 8
+    channels K4 takes its matrix-DFT kernel (fold_dft_kernel), which is
+    held here against its plain version on that capture's rows."""
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        one, wide = os.path.join(tmp, "dl.cf32"), os.path.join(tmp, "wb.cf32")
+        _, out["tetra_tx_s"] = run_cli(
+            "tetra_tx", one, "--slots", str(CLI_SLOTS), "--mcc", "901",
+            "--mnc", "4321", "--cc", "13", "--cfo", "250", "--snr", "28")
+        _, out["tetra_tx_wideband_s"] = run_cli(
+            "tetra_tx", wide, "--slots", "220", "--wideband", "8",
+            "--channels", "0,3,5", "--mcc", "310", "--mnc", "77")
+        z = k4_rows(load_iq(wide), 8, dev)
+        _, err, rms = k4_check(z[0], z[1], 8, CK.fold_dft(z[0], z[1], 8))
+        out["k4_n_ch8"] = dict(rows=int(z[0].shape[0]), max_abs_err=err,
+                               rms=rms)
+        del z
+        for mode in ("fast", "ff", "exact"):
+            summary, wall = run_cli("tetra_rx", one, "--demod", mode,
+                                    "--status-every", "100")
+            s = summary[0]
+            check(s["locked"] and (s["mcc"], s["mnc"]) == (901, 4321),
+                  f"tetra_rx --demod {mode}: {s}")
+            out[f"tetra_rx_{mode}"] = dict(wall_s=wall, crc_ok=s["crc_ok"],
+                                          crc_fail=s["crc_fail"])
+        summary, wall = run_cli("tetra_rx", wide, "--wideband", "8",
+                                "--demod", "ff", "--status-every", "100")
+        cells = {s["channel"]: s for s in summary if s["channel"] in (0, 3, 5)}
+        check(all(s["locked"] and (s["mcc"], s["mnc"]) == (310, 77)
+                  for s in cells.values()) and len(cells) == 3,
+              f"tetra_rx --wideband 8 --demod ff: {summary}")
+        out["tetra_rx_wideband_ff"] = dict(
+            wall_s=wall, crc_ok=[cells[c]["crc_ok"] for c in (0, 3, 5)])
+    return out
+
+
+def phase_slice_modes(dev, wide: np.ndarray, n_ch: int = N_CH) -> dict:
+    """The CLI's --wideband N --demod ff/exact host path in process, card
+    against CPU from a warm state, then the CLI round trip.  Returns the
+    phase's results and (state, block) per mode for the device-op count."""
+    fs = n_ch * 25_000
+    # the air as an SDR capture at full scale (peak |x| = 1, as load_iq
+    # returns a cs16 file): the exact chain's per-sample AGC (gain +=
+    # 0.02 (1 - |y|)) is stable only for |x| < 2 / 0.02 = 100, and the
+    # channelizer's gain of n_ch takes cell_air's unit carriers to ~400
+    # at 256 channels, where the reference's chain diverges too
+    air = wide[:int(max(MODES_SECONDS.values()) * fs)]
+    air = (air / np.abs(air).max()).astype(np.complex64)
+    wrappers = zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ch = CH.channelize(air, n_ch, dev)
+    t1 = time.perf_counter()
+    iq = CH.resample_50_to_36(ch, dev)
+    t2 = time.perf_counter()
+    front = read_launches(wrappers)
+    check(front["K4 fold_dft"] == 1, f"channelize launched K4 "
+          f"{front['K4 fold_dft']} times, not once over the capture")
+    check(not any(n for k, n in front.items() if k != "K4 fold_dft"),
+          f"the host front end launched {front}")
+    # K4's one launch at this size (~28x the main path's rows) against its
+    # plain version on the same rows
+    z = k4_rows(air, n_ch, dev)
+    yk = [torch.from_numpy(np.ascontiguousarray(p.T)).to(dev)
+          for p in (ch.real, ch.imag)]
+    _, err, rms = k4_check(z[0], z[1], n_ch, yk)
+    out = dict(channels=n_ch, air_s=len(air) / fs, channelize_ms=(t1 - t0)
+               * 1e3, resample_ms=(t2 - t1) * 1e3, frames_50k=ch.shape[1],
+               samples_36k=iq.shape[1], launches=front,
+               k4_rows=int(z[0].shape[0]), k4_max_abs_err=err, k4_rms=rms)
+    del ch, z, yk
+    warm = {}
+    for mode, seconds in MODES_SECONDS.items():
+        out[mode], rx = run_mode(dev, iq, mode, seconds, n_ch)
+        block = iq[:, -MODES_BLOCK:] if mode == "ff" else \
+            iq[:, out[mode]["blocks_driven"] * MODES_BLOCK:
+               (out[mode]["blocks_driven"] + 1) * MODES_BLOCK]
+        out[mode]["card_vs_cpu"] = card_vs_cpu(mode, rx.demod, rx.state,
+                                                block)
+        warm[mode] = (rx.state, block)
+    out["cli"] = cli_round_trip(dev)
+    return out, warm
+
+
+def exact_device_ops(state, block: np.ndarray) -> dict:
+    """Device operations of one exact-chain block (C = 256, T = 4096):
+    the profiler's device rows over one demod_block call."""
+    from tetra_tpu_torch.rx import demod as EX
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        EX.demod_block(state, block)
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    return dict(device_ops=sum(e.count for e in rows),
+                device_ms=sum(_device_ms(e) for e in rows))
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device")
@@ -1024,11 +1317,14 @@ def main() -> None:
     print(f"slice: gpu=[{gpu}] " + json.dumps(sl), flush=True)
     nf = phase_slice_nonfleet(dev, wide)
     print(f"slice_nonfleet: gpu=[{gpu}] " + json.dumps(nf), flush=True)
-    del wide
     voice = phase_slice_voice(dev, nf)
+    modes, warm = phase_slice_modes(dev, wide)
+    del wide
     phase_device_times(jobs + front_jobs)
     voice["decode_slot_profile"] = decode_slot_device_ops(dev)
     print(f"slice_voice: gpu=[{gpu}] " + json.dumps(voice), flush=True)
+    modes["exact"]["block_profile"] = exact_device_ops(*warm["exact"])
+    print(f"slice_modes: gpu=[{gpu}] " + json.dumps(modes), flush=True)
     for r in rows:
         print("kernel: " + json.dumps(r), flush=True)
     kernels = [dict(name=r["name"], route="cuda", source=SOURCES[r["name"]],
@@ -1039,6 +1335,7 @@ def main() -> None:
                     launches_nonfleet=nf["launches"][r["name"]],
                     launches_per_cycle_nonfleet=nf["launches_per_cycle"][
                         r["name"]],
+                    launches_modes=modes["launches"][r["name"]],
                     max_abs_err=r["max_abs_err"], ms=r["ms"],
                     plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                     bound_by=r["bound_by"], library_ms=r["library_ms"],

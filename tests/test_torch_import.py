@@ -54,7 +54,9 @@ def test_port_covers_the_slice_layout():
               "crypto.tea_tables", "crypto.tea", "crypto.hurdle_tables",
               "crypto.hurdle", "crypto.taa1", "crypto.state",
               "voice.acelp", "voice.channel", "voice.pipeline",
-              "voice.audio_out"):
+              "voice.audio_out", "core.loops", "rx.demod_ff",
+              "tx.modulator", "tx.channel", "tx.modulator2",
+              "runtime.iq_stream", "apps.tetra_rx", "apps.tetra_tx"):
         assert "tetra_tpu_torch." + m in mods, m
 
 
@@ -107,6 +109,14 @@ vp(TdmaTime(mn=1, fn=2, tn=2), channel.encode_slot(frames.reshape(-1)))
 assert vp.slots_decoded == 1 and vp.bad_frames == 0
 assert vp.take_audio().shape == (480,)
 assert len(tea.tea1(0x1234, bytes(range(10)), 8)) == 8
+# one ff block and one exact block of modulated air on the CPU
+from tetra_tpu_torch.rx import demod, demod_ff
+from tetra_tpu_torch.tx.modulator import modulate
+iq = modulate(np.random.default_rng(2).integers(0, 2, (2, 2048)),
+              device='cpu').numpy()
+for mod, T in ((demod_ff, 1024), (demod, 512)):
+    st, o = mod.demod_block(mod.demod_init(2, 'cpu'), iq[:, :T])
+    assert int(o['valid'].sum()) > 0.4 * T, mod
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'tetra_tpu'))
 assert not bad, bad
@@ -119,7 +129,8 @@ def test_runs_without_jax_or_tetra_tpu():
     chip_smoke import, the cell_air fixture runs (4 channels, 0.1 s), the
     C++ sources of the fleet engine and of the native MAC lie inside
     tetra_tpu_torch/, a BurstSync + LowerMac decode of a cell runs, and so
-    do a speech slot's decode and synthesis and a TEA1 keystream."""
+    do a speech slot's decode and synthesis, a TEA1 keystream, and one
+    block each of the ff and exact demod chains."""
     mods = _modules() + ["chip_smoke"]
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = ROOT

@@ -144,14 +144,40 @@ def test_narrowband_fleet_matches_jax():
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(mode="ff"), "item 14"),
-    (dict(fleet=True, mode="exact"), "item 12"),
     (dict(mac_workers=2), "item 17"),
-    (dict(keystore="keys.txt"), "item 17"),
     (dict(fleet=True, wideband=8, wb_k=2, wb_pipeline=True), "Not ported"),
 ])
 def test_unported_modes_raise(kw, item):
     with pytest.raises(NotImplementedError, match="ROADMAP.*" + item):
+        TetraReceiver(channels=2, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("kw,state,fleet", [
+    (dict(mode="ff"), "FfDemodState", False),
+    (dict(fleet=True, mode="exact"), "DemodState", True),
+    (dict(keystore="keys.txt"), "FastDemodState", False),
+])
+def test_ported_modes_construct(kw, state, fleet):
+    """mode="ff" and mode="exact" (per-channel and fleet) construct with
+    their chain's state, as the reference's do; keystore= without
+    mac_workers is accepted and unused, as in the reference."""
+    rx = TetraReceiver(channels=2, device="cpu", **kw)
+    ref = JaxReceiver(channels=2, **kw)
+    assert type(rx.state).__name__ == type(ref.state).__name__ == state
+    assert (rx.fleet is not None) == fleet
+    assert rx.state.agc_gain.device.type == "cpu"
+
+
+@pytest.mark.parametrize("kw,match", [
+    (dict(wideband=8, mode="ff"), "fast chain only"),
+    (dict(mode="fastest"), "mode="),
+    (dict(fleet=True, keystore="keys.txt"), "keystore"),
+])
+def test_invalid_mode_combinations_raise(kw, match):
+    """The reference asserts these (wideband fusion runs the fast chain;
+    fleet mode takes no keystore); the port raises ValueError, and also
+    for a mode it does not know."""
+    with pytest.raises(ValueError, match=match):
         TetraReceiver(channels=2, device="cpu", **kw)
 
 

@@ -110,6 +110,27 @@ def test_n_chunks_for_equal(T):
     assert TDF.n_chunks_for(T) == JDF.n_chunks_for(T)
 
 
+# the per-sample chain's (rx/demod.py) and the feedforward chain's
+# (rx/demod_ff.py) constants
+EXACT_CONSTS = ("_FLL_ALPHA", "_FLL_BETA", "_COSTAS_ALPHA", "_COSTAS_BETA",
+                "_MM_MU_GAIN", "_MM_OMEGA_GAIN", "_OMEGA", "_OMEGA_MIN",
+                "_OMEGA_MAX", "_FLL_FREQ_LIM", "_COSTAS_FREQ_LIM",
+                "_DIFF_REMAP")
+
+
+@pytest.mark.parametrize("name", EXACT_CONSTS)
+def test_exact_chain_constant_equal(name):
+    _same(getattr(TD, name), getattr(JD, name))
+
+
+@pytest.mark.parametrize("T", [1024, 4096, 4608])
+def test_exact_max_symbols_and_ff_segment_equal(T):
+    from tetra_tpu.rx import demod_ff as JFF
+    from tetra_tpu_torch.rx import demod_ff as TFF
+    assert TD.max_symbols(T) == JD.max_symbols(T)
+    assert TFF.SEG_SYM == JFF.SEG_SYM
+
+
 # ---------------------------------------------------------------------------
 # The port's copies of host-only modules (it imports nothing of tetra_tpu):
 # each copy is held to its original here.
@@ -323,18 +344,25 @@ def test_mac_state_struct_layout_equal(name):
 
 
 @pytest.mark.parametrize("src", ["fleet.cpp", "macparse.cpp",
-                                 "acelp_codec.cpp"])
+                                 "acelp_codec.cpp", "iq_stream.cpp"])
 def test_native_source_copy_byte_equal(src):
-    """The fleet engine, the native MAC core and the ACELP codec build from
-    the port's own copies of the C++ sources, which stay byte-equal to the
-    JAX package's."""
+    """The fleet engine, the native MAC core, the ACELP codec and the IQ
+    stream runtime build from the port's own copies of the C++ sources,
+    which stay byte-equal to the JAX package's."""
     port = os.path.join(TFLEET._NATIVE, src)
     assert os.path.commonpath([port, os.path.join(ROOT, "tetra_tpu_torch")]) \
         == os.path.join(ROOT, "tetra_tpu_torch")
-    ref_dir = ("voice" if src == "acelp_codec.cpp" else "rx", "native")
+    ref_dir = {"acelp_codec.cpp": ("voice", "native"),
+               "iq_stream.cpp": ("runtime", "native")}.get(src,
+                                                           ("rx", "native"))
     with open(port, "rb") as a, open(os.path.join(
             ROOT, "tetra_tpu", *ref_dir, src), "rb") as b:
         assert a.read() == b.read()
+
+
+def test_iq_stream_builds_from_the_port_copy():
+    from tetra_tpu_torch.runtime import iq_stream
+    assert iq_stream._SRC == os.path.join(TFLEET._NATIVE, "iq_stream.cpp")
 
 
 # ---------------------------------------------------------------------------
@@ -390,9 +418,14 @@ def test_host_copy_names_and_dataclasses_equal(module):
             assert fields(getattr(port, n)) == fields(v), n
 
 
-@pytest.mark.parametrize("module", ["mac_pdu", "llc", "mle"])
+@pytest.mark.parametrize("module", ["mac_pdu", "llc", "mle", "modulator2"])
 def test_host_parser_copy_byte_equal(module):
-    """The PDU parsers are verbatim copies."""
-    port, ref = HOST_COPIES[module]
+    """The PDU parsers and the clean-room modulator (tx/modulator2.py,
+    NumPy only) are verbatim copies."""
+    if module == "modulator2":
+        from tetra_tpu.tx import modulator2 as ref
+        from tetra_tpu_torch.tx import modulator2 as port
+    else:
+        port, ref = HOST_COPIES[module]
     with open(port.__file__, "rb") as a, open(ref.__file__, "rb") as b:
         assert a.read() == b.read()

@@ -120,10 +120,12 @@ def load():
         return lib
 
 
-def host_library(stem: str, srcs: list[str], flags: list[str]) -> str:
+def host_library(stem: str, srcs: list[str], flags: list[str],
+                 libs: tuple[str, ...] = ()) -> str:
     """Path of the host (g++) shared library built from srcs[0], which
-    includes srcs[1:], by `g++ <flags> -shared -fPIC` (each caller passes
-    its JAX counterpart's flags, so both builds compute alike).  It is
+    includes srcs[1:], by `g++ <flags> -shared -fPIC -o <so> srcs[0]
+    <libs>` (each caller passes its JAX counterpart's flags, so both builds
+    compute alike).  It is
     built on first use under a name hashed from the sources and flags,
     written under a temporary name and moved into place as the CUDA
     library is.  A failed build raises."""
@@ -132,14 +134,14 @@ def host_library(stem: str, srcs: list[str], flags: list[str]) -> str:
     for src in srcs:
         with open(src, "rb") as f:
             h.update(f.read())
-    h.update(" ".join(flags).encode())
+    h.update(" ".join(flags + list(libs)).encode())
     so = os.path.join(BUILD_DIR, f"lib{stem}_{h.hexdigest()[:16]}.so")
     if not os.path.exists(so):
         os.makedirs(BUILD_DIR, exist_ok=True)
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
         try:
-            subprocess.run(cmd + ["-o", tmp, srcs[0]], check=True)
+            subprocess.run(cmd + ["-o", tmp, srcs[0], *libs], check=True)
             os.replace(tmp, so)
         finally:
             if os.path.exists(tmp):

@@ -27,7 +27,7 @@ from .demod import (_COSTAS_ALPHA as _COSTAS_ALPHA_REF,
                     _FLL_FREQ_LIM,
                     _MM_MU_GAIN as _MM_MU_GAIN_REF,
                     _MM_OMEGA_GAIN as _MM_OMEGA_GAIN_REF,
-                    _OMEGA, _OMEGA_MAX, _OMEGA_MIN)
+                    _OMEGA, _OMEGA_MAX, _OMEGA_MIN, _to_pair)
 
 K_SAMP = 64    # AGC/FLL chunk length (samples)
 K_SYM = 32     # timing/Costas chunk length (symbols)
@@ -208,6 +208,23 @@ def rot_ramp(phase, freq, K: int, time_first: bool):
     return c, s
 
 
+def rot_ramp_outer(phase, freq, K: int, chunk: int = 64):
+    """rot_ramp as a two-level outer product: e^{j(phase + freq n)} with
+    n = chunk q + r as (major ramp over q) x (minor ramp over r); the
+    doubling runs on (C, K/chunk) and (C, chunk) only.  Returns (C, K)
+    cos/sin."""
+    if K % chunk:
+        raise ValueError(f"K={K} is not a multiple of chunk={chunk}")
+    Q = K // chunk
+    cM, sM = rot_ramp(phase, freq * chunk, Q, time_first=False)   # (C, Q)
+    cm, sm = rot_ramp(torch.zeros_like(phase), freq, chunk,
+                      time_first=False)                           # (C, chunk)
+    c = cM[:, :, None] * cm[:, None, :] - sM[:, :, None] * sm[:, None, :]
+    s = sM[:, :, None] * cm[:, None, :] + cM[:, :, None] * sm[:, None, :]
+    C = phase.shape[0]
+    return c.reshape(C, K), s.reshape(C, K)
+
+
 def _agc_fll_chunked(xr, xi, gain, phase, freq, hre, him, be):
     """Chunked AGC/FLL, one loop update per K_SAMP-sample group (the plain
     form of K1's loop).  x: (C, T).  Returns the rotated stream (C, T) pair,
@@ -304,12 +321,6 @@ def _demod_block_impl(state: FastDemodState, xr, xi, n_chunks: int,
         outs.update(dibits=dib_t.T.to(torch.uint8), valid=val_t.T.bool(),
                     dist=dist_t.T, sym_re=sr_t.T, sym_im=si_t.T)
     return new_state, outs
-
-
-def _to_pair(iq: np.ndarray, device):
-    xr = torch.from_numpy(np.ascontiguousarray(iq.real, dtype=np.float32))
-    xi = torch.from_numpy(np.ascontiguousarray(iq.imag, dtype=np.float32))
-    return xr.to(device), xi.to(device)
 
 
 def demod_block(state: FastDemodState, iq: np.ndarray):

@@ -17,8 +17,11 @@ reference: a voice callback (voice.pipeline.VoicePipeline, or the shared
 voice_cb) on rx.mac[c].voice_cb or the fleet engine, and a
 crypto.state.CryptoState on rx.mac[c].upper.crypto_state.
 
-mode="exact" (ROADMAP Queue 1 item 12), mode="ff" (item 14), mac_workers
-> 0 and keystore= (item 17) raise NotImplementedError.
+The narrowband receivers (process() of 36 ksps blocks) also run the other
+two demod chains: mode="ff", the feedforward block receiver
+(rx/demod_ff), and mode="exact", the per-sample parity chain (rx/demod);
+neither launches a kernel.  mac_workers > 0 (the host MAC pool, ROADMAP
+Queue 1 item 17) raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -29,7 +32,8 @@ import torch
 from .. import params as P
 from .. import resolve_device
 from ..parallel import channelizer as CH
-from . import demod_fast
+from . import demod as demod_exact
+from . import demod_fast, demod_ff
 from .burst_sync import RX_LOCKED, RX_UNLOCKED, BurstSync, device_acquire_scan
 from .demod import dibits_to_bits
 from .fleet import FleetEngine
@@ -153,22 +157,32 @@ class TetraReceiver:
         voice is a VoicePipeline on rx.mac[c].voice_cb (or voice_cb= for
         every channel).
 
-        Not ported yet: mode="exact" (ROADMAP Queue 1 item 12), mode="ff"
-        (item 14), mac_workers > 0 and keystore= (item 17): each raises
+        mode: "fast" = the chunked production chain (rx/demod_fast, the
+        K1 and K2 kernels); "ff" = the feedforward block receiver
+        (rx/demod_ff); "exact" = the per-sample parity chain (rx/demod).
+        The wideband front end feeds the fast chain only, as in the
+        reference.
+
+        keystore: as in the reference, the pooled receiver's worker-side
+        keys (mac_workers); otherwise unused (per-channel decryption is a
+        crypto.state.CryptoState on rx.mac[c].upper.crypto_state).  Fleet
+        mode takes none.
+
+        Not ported yet: mac_workers > 0 (ROADMAP Queue 1 item 17) raises
         NotImplementedError."""
-        if mode != "fast":
-            item = 14 if mode == "ff" else 12
-            raise NotImplementedError(
-                f"mode={mode!r}: only the chunked 'fast' chain is ported "
-                f"(ROADMAP Queue 1 item {item})")
+        demods = {"fast": demod_fast, "ff": demod_ff, "exact": demod_exact}
+        if mode not in demods:
+            raise ValueError(f"mode={mode!r}: one of {sorted(demods)}")
+        if wideband and mode != "fast":
+            raise ValueError(f"wideband={wideband} runs the fast chain only, "
+                             f"not mode={mode!r}")
         if mac_workers:
             raise NotImplementedError(
                 "mac_workers: the host MAC pool is not ported "
                 "(ROADMAP Queue 1 item 17)")
-        if keystore is not None:
-            raise NotImplementedError(
-                "keystore: the pooled crypto path is not ported "
-                "(ROADMAP Queue 1 item 17)")
+        if fleet and keystore is not None:
+            raise ValueError("fleet mode takes no keystore: crypto needs "
+                             "the per-channel MAC")
         if link_profile not in ("tunnel", "pcie"):
             raise ValueError(f"link_profile={link_profile!r}: 'tunnel' or "
                              f"'pcie'")
@@ -181,8 +195,8 @@ class TetraReceiver:
         if wideband:
             channels = wideband
         self.channels = channels
-        self.demod = demod_fast
-        self.state = demod_fast.demod_init(channels, self.device)
+        self.demod = demods[mode]
+        self.state = self.demod.demod_init(channels, self.device)
         self.sym_quality = np.zeros(channels, np.float32)
         self.wideband = wideband
         self.wb_k = max(1, wb_k)
@@ -242,12 +256,14 @@ class TetraReceiver:
             raise ValueError(f"{iq.shape[0]} channels fed to a "
                              f"{self.channels}-channel receiver")
         if not self._cfo_primed:
-            # one-shot acquisition assist: preset the FLL frequency
+            # one-shot acquisition assist: preset the FLL frequency (the
+            # ff chain has no FLL: it estimates its coarse CFO every block)
             self._cfo_primed = True
-            est = self.coarse_cfo(np.asarray(iq, np.complex64))
-            self.state = self.state._replace(
-                fll_freq=torch.from_numpy(est).to(self.device))
-        self.state, outs = demod_fast.demod_block(self.state, iq)
+            if hasattr(self.state, "fll_freq"):
+                est = self.coarse_cfo(np.asarray(iq, np.complex64))
+                self.state = self.state._replace(
+                    fll_freq=torch.from_numpy(est).to(self.device))
+        self.state, outs = self.demod.demod_block(self.state, iq)
         self._post_demod(outs)
 
     def process_wideband(self, raw: np.ndarray) -> None:
@@ -458,7 +474,7 @@ class TetraReceiver:
             raise ValueError("checkpoint and receiver differ in fleet mode")
         self.state = state_from_numpy(
             {k[len("demod_"):]: z[k] for k in z.files
-             if k.startswith("demod_")}, self.device)
+             if k.startswith("demod_")}, self.device, type(self.state))
         if self.fleet is not None:
             self.fleet.load_state_bytes(z["fleet_blob"].tobytes())
         else:

@@ -1,10 +1,11 @@
-"""Host-side TX fixtures for the port (numpy; no jax).
+"""Wideband TX fixtures for the port (no jax).
 
-Copies of tetra_tpu/tx/wideband.synthesize_wideband and of the benchmark's
-heterogeneous_fleet_iq (bench.py), whose originals import jax through the
-modulator.  Same code, same seeds, same outputs.  The cell bit streams come
-from the port's own tx/cell.py; voice_cell_air adds traffic, slot stealing
-and TEA1 encryption to cell_air's multiplex.
+Copies of tetra_tpu/tx/wideband.synthesize_wideband (host numpy) and of
+the benchmark's heterogeneous_fleet_iq (bench.py): same code, same seeds,
+same outputs; and the port of tetra_tpu/tx/wideband.assemble_wideband,
+whose resampler runs on a torch device.  The cell bit streams come from
+the port's own tx/cell.py; voice_cell_air adds traffic, slot stealing and
+TEA1 encryption to cell_air's multiplex.
 """
 
 from __future__ import annotations
@@ -16,9 +17,7 @@ from ..core.taps import root_raised_cosine
 from ..crypto.state import KEYTYPE_CCK_SCK, KSG_TEA1, CryptoState, KeyStore
 from ..rx.tdma import TdmaTime
 from .cell import CellConfig, downlink_bits
-
-# phase step per dibit, in radians (ETSI table 9.14)
-_DIBIT_PHASE = np.array([1, 3, -1, -3], np.float32) * (np.pi / 4.0)
+from .modulator import _DIBIT_PHASE
 
 
 def _shaped(bits: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
@@ -76,6 +75,35 @@ def synthesize_wideband(bitmat: np.ndarray, n_ch: int,
         ni = rng.standard_normal(n_wide).astype(np.float32)
         wide = wide + np.sqrt(noise_p / 2) * (nr + 1j * ni)
     return wide.astype(np.complex64)
+
+
+def assemble_wideband(channels: dict[int, np.ndarray], n_ch: int,
+                      amplitude: float = 1.0, device=None) -> np.ndarray:
+    """channels: {channel_index: complex IQ at 36 kHz}.  Returns wideband
+    complex64 at n_ch*25 kHz with each signal centered at k*25 kHz.  The
+    36 kHz -> n_ch*25 kHz resampling runs on `device` (the current CUDA
+    device unless the caller asks for the CPU), the mixing on the host."""
+    from math import gcd
+
+    from ..parallel.channelizer import resample
+    fs = n_ch * 25_000
+    g = gcd(fs, 36_000)
+    L, M = fs // g, 36_000 // g
+    length = None
+    up = {}
+    for k, iq in channels.items():
+        y = resample(np.asarray(iq)[None], L, M, device)[0]
+        up[k] = y
+        length = len(y) if length is None else min(length, len(y))
+    t = np.arange(length) / fs
+    wide = np.zeros(length, np.complex64)
+    for k, y in up.items():
+        f0 = k * 25_000.0
+        if f0 > fs / 2:
+            f0 -= fs
+        wide += (y[:length] * np.exp(2j * np.pi * f0 * t) * amplitude
+                 ).astype(np.complex64)
+    return wide
 
 
 def _largest_prime_factor(n: int) -> int:
