@@ -69,6 +69,32 @@ Phases, each printing one line (any failure raises and exits non-zero):
    and exact and the second with --demod ff; each must lock and show the
    cell's MCC/MNC in its summary JSON.  The exact chain's device ops per
    block are counted in a profiler window at the end.
+7. slice_pool (run after slice_nonfleet): the same receiver with its MAC
+   in POOL_WORKERS CPU worker processes, TetraReceiver(wideband=256,
+   t50=6400, events=False, mac_workers=4) (the CLI's --mac-workers 4),
+   over slice_nonfleet's air and warm-up: its decode gates, K1-K4
+   launched, and per channel display(c) and crc_counts(c) equal to
+   slice_nonfleet's in-process receiver's.  Then voice: voice_cell_air at
+   16 carriers through a 4-worker pool with voice=True and a keystore (the
+   workers decode speech on the CPU) against the same receiver in process
+   with a VoicePipeline on the card per carrier, fed in lockstep: each
+   cycle's pool.take_audio() equal to the in-process PCM in the pool's
+   batch order, and equal decrypted-SDU counts per carrier.  It prints
+   stage ms per cycle (the parent's, and the wait for the workers'
+   replies), the workers' start-up time and K1-K4's launches per cycle.
+8. slice_mesh: (a) in this process, a 1x1 (host, chip) mesh (one gloo
+   rank): parallel.mesh.sharded_wideband_superblock_step at n_ch = 256,
+   wb_k = 8, t50 = 6400 over 4 superblocks of the fleet slice's air (K4
+   over the band, the resample kernel alone, K1, K2 lean; launches
+   counted over those steps alone), its packed words equal to
+   rx.receiver._wideband_step_scan's on the same windows (rows [:-1];
+   the dist-sum row within 2e-3 relative) and its all-reduced health
+   equal to its rows' sums; (b) the multihost launcher's one-card
+   rehearsal as a subprocess (python -m tetra_tpu_torch.apps.multihost
+   --hosts 2 --chips 1 --channels 256 --selftest --backend gloo: two gloo
+   ranks on this card), which must print SELFTEST PASS for both hosts;
+   it prints MS/s per host and the wall time.  slice_pool and slice_mesh
+   print their wall time (phase_s).
 
 K3's row also carries its second kernel, the resample, timed alone on
 K4's output (resample_ms, 9 runs of 20 launches with min-max, and
@@ -88,7 +114,10 @@ bytes over the HBM rate and its operations over the FP32 rate, from this
 run's shapes; bound_by says which), its launches per superblock on the
 fleet slice, its launches on the per-channel slice
 (launches_nonfleet, one per 128 ms cycle), its launches on slice_modes'
-in-process path (launches_modes: K4 from channelize only), and
+in-process path (launches_modes: K4 from channelize only), on
+slice_pool (launches_pool) and on slice_mesh (a) (launches_mesh: K3's
+row counts its second kernel, the resample, which the mesh launches
+alone after K4), and
 library_ms: the time of PyTorch library calls computing the same function
 where they exist, else null.  For K4 two such yardsticks are
 timed, each a fold then one torch.fft.fft and the flip: the fold as an
@@ -130,6 +159,7 @@ from tetra_tpu_torch.rx import demod_fast as DF
 from tetra_tpu_torch.rx import fec as FEC
 from tetra_tpu_torch.rx import lower_mac as LM
 from tetra_tpu_torch.rx import receiver as R
+from tetra_tpu_torch.rx.hostpool import MacPool
 from tetra_tpu_torch.rx.receiver import TetraReceiver
 from tetra_tpu_torch.tx.wideband import (cell_air, cell_keystore,
                                          heterogeneous_fleet_iq,
@@ -169,6 +199,10 @@ TOL_MODES_FLOAT = {"ff": (1e-3, 1.0, 1e-3), "exact": (1e-4, 0.99, 2e-2)}
 # is wider than what float16 inputs move its symbols: <= 4.9e-4)
 CONTROL_FAILS = ("exact",)
 CLI_SLOTS = 120            # the round trip's 1-channel capture (1.7 s)
+POOL_WORKERS = 4           # slice_pool's MAC worker processes
+POOL_VOICE_CARRIERS = 16   # slice_pool's voice run: one B = 1 pipeline a
+POOL_VOICE_SECONDS = 2.4   # carrier on the card for the comparator
+MESH_SUPERBLOCKS = 4       # slice_mesh (a): 4 x 8 cycles of the air
 
 # limits of kernel vs plain on identical inputs (float32, different
 # summation orders and cosf/sinf/rsqrtf vs the CPU-style library calls)
@@ -808,6 +842,18 @@ def drive_receiver(rx, feed, blocks: list, n_warm: int, n_ch: int,
             "quality_ok": quality, "launches": launches}
 
 
+def cycle_chunks(rx, wide: np.ndarray, seconds: float) -> tuple[list, int]:
+    """A per-channel wideband receiver's host cf32 feed of the first
+    `seconds` of wide: the first window's head, then one cycle's advance a
+    chunk; and the cycles of WARM_SECONDS (+ 1)."""
+    adv, wl = rx._wb["advance"], rx._wb["wide_len"]
+    fs = rx.channels * 25_000
+    n_cyc = int((seconds * fs - (wl - adv)) // adv)
+    return ([wide[:wl - adv]] + [wide[wl - adv + k * adv:wl + k * adv]
+                                 for k in range(n_cyc)],
+            int(WARM_SECONDS * fs / adv) + 1)
+
+
 def phase_slice_nonfleet(dev, wide: np.ndarray, n_ch: int = N_CH,
                          attach=None, stages=(), at_warm=None) -> dict:
     """The per-channel receiver as the CLI builds it, fed host cf32 chunks
@@ -821,14 +867,11 @@ def phase_slice_nonfleet(dev, wide: np.ndarray, n_ch: int = N_CH,
         attach(rx)
     check(rx.fleet is None and rx.device_acquire,
           "the CLI's receiver is per-channel with device acquisition")
-    adv, wl = rx._wb["advance"], rx._wb["wide_len"]
-    fs = n_ch * 25_000
-    n_cyc = int((NONFLEET_SECONDS * fs - (wl - adv)) // adv)
-    warm = int(WARM_SECONDS * fs / adv) + 1
+    adv, fs = rx._wb["advance"], n_ch * 25_000
+    chunks, warm = cycle_chunks(rx, wide, NONFLEET_SECONDS)
+    n_cyc = len(chunks) - 1
     check(n_cyc - warm >= math.ceil(2.0 * fs / adv),
           f"{n_cyc} cycles, {warm} warm-up: under 2 s timed")
-    chunks = [wide[:wl - adv]] + [wide[wl - adv + k * adv:wl + k * adv]
-                                  for k in range(n_cyc)]
     # the inner stages: inside the FEC stage, the fused decode call (its
     # rows built, moved to the card, decoded and fetched) and, inside
     # that, the decode's torch ops as the host issues them
@@ -1045,10 +1088,7 @@ def phase_slice_voice(dev, nf: dict, n_ch: int = N_CH,
               f"carrier {c}: audio differs from a fresh decoder's")
         sdus = 0
         if c in ENCRYPTED:
-            sdus = sum(e[0] == "llc" and e[2].name == "BL-UDATA"
-                       and e[3] is not None
-                       and e[3].pdu_name == "D-SDS DATA"
-                       for e in rx.mac[c].upper.events[events0[c]:])
+            sdus = decrypted_sdus(rx.mac[c].upper.events[events0[c]:])
             check(sdus > 0, f"carrier {c}: no decrypted SDU after warm-up")
             check(n_clear.get(c, 0) > 0,
                   f"carrier {c}: no voice slot decrypted after warm-up")
@@ -1294,6 +1334,229 @@ def exact_device_ops(state, block: np.ndarray) -> dict:
     return dict(device_ops=sum(e.count for e in rows),
                 device_ms=sum(_device_ms(e) for e in rows))
 
+def decrypted_sdus(events) -> int:
+    """The decrypted SDS messages in an event log (LLC events whose
+    MLE/SDS parse succeeded on an encrypted cell)."""
+    return sum(e[0] == "llc" and e[2].name == "BL-UDATA"
+               and e[3] is not None and e[3].pdu_name == "D-SDS DATA"
+               for e in events)
+
+
+def phase_slice_pool(dev, wide: np.ndarray, nf_rx) -> dict:
+    """The per-channel receiver with its MAC in POOL_WORKERS CPU worker
+    processes (TetraReceiver(..., mac_workers=W), the CLI's --mac-workers
+    W) on slice_nonfleet's air and warm-up: the decode gates, every
+    kernel launched, and per channel the display and CRC tallies of the
+    in-process receiver nf_rx on the same air; then pool_voice."""
+    t0 = time.perf_counter()
+    rx = TetraReceiver(wideband=N_CH, t50=T50, events=False,
+                       mac_workers=POOL_WORKERS, device=dev)
+    spawn_s = time.perf_counter() - t0
+    try:
+        check(rx.pool is not None and not rx.mac and rx.device_acquire,
+              "the pooled receiver has no in-process MAC")
+        chunks, warm = cycle_chunks(rx, wide, NONFLEET_SECONDS)
+        res = drive_receiver(
+            rx, rx.process_wideband, chunks, warm + 1, N_CH, "pooled",
+            "cycle", [(R, "_wideband_step", "device step + fetch"),
+                      (TetraReceiver, "_fetch", "device step + fetch"),
+                      (TetraReceiver, "_sync_bursts",
+                       "burst sync + device acquire"),
+                      (LM, "decode_bursts_multi", "FEC"),
+                      (MacPool, "_recv", "wait for the workers")],
+            "rest (framing, upload, shipping to the workers)")
+        del res["inner"]
+        for name, n in res["launches"].items():
+            check(n > 0, f"{name} was not launched on the pooled path")
+        differ = [c for c in range(N_CH)
+                  if rx.display(c).as_dict() != nf_rx.display(c).as_dict()
+                  or rx.crc_counts(c) != nf_rx.crc_counts(c)]
+        check(not differ, f"pooled decode differs from the in-process "
+              f"receiver's on channels {differ[:20]}")
+    finally:
+        rx.pool.close()
+    n_cyc = len(chunks) - 1
+    air_ms = rx._wb["advance"] / (N_CH * 25_000) * 1e3
+    return dict(res, channels=N_CH, workers=POOL_WORKERS,
+                spawn_s=spawn_s, cycles_driven=n_cyc, cycle_air_ms=air_ms,
+                rt_margin=air_ms / res["cycle_wall_ms"],
+                launches_per_cycle={k: v / n_cyc
+                                    for k, v in res["launches"].items()},
+                channels_equal_to_in_process=N_CH, voice=pool_voice(dev))
+
+
+def pool_voice(dev) -> dict:
+    """voice_cell_air at POOL_VOICE_CARRIERS carriers through a pool of
+    POOL_WORKERS with voice=True and a keystore (the workers decode voice
+    on the CPU), against the same receiver in process with one
+    VoicePipeline on the card and one CryptoState from the keystore per
+    carrier, fed the same chunks in lockstep.  Each cycle's
+    pool.take_audio() must be the in-process PCM in the pool's batch
+    order (workers in the order their first channel came, each's channels
+    in order), and every carrier's decrypted-SDU count the in-process
+    count."""
+    with tempfile.TemporaryDirectory() as tmp:
+        keys = os.path.join(tmp, "keys.txt")
+        with open(keys, "w") as f:
+            f.write(cell_keystore(ENCRYPTED))
+        return _pool_voice(dev, keys)
+
+
+def _pool_voice(dev, keys: str) -> dict:
+    n, W = POOL_VOICE_CARRIERS, POOL_WORKERS
+    wide, _ = voice_cell_air(n, POOL_VOICE_SECONDS, N_CELLS, keystore=keys,
+                             encrypted=ENCRYPTED)
+    local = TetraReceiver(wideband=n, t50=T50, events=True, device=dev)
+    pipes = []
+    for m in local.mac:
+        m.upper.crypto_state = CryptoState(store=KeyStore.load(keys))
+        pipes.append(VoicePipeline(crypto_state=m.upper.crypto_state,
+                                   device=dev))
+        m.voice_cb = pipes[-1]
+    t0 = time.perf_counter()
+    pooled = TetraReceiver(wideband=n, t50=T50, events=True, mac_workers=W,
+                           voice=True, keystore=keys, device=dev)
+    spawn_s = time.perf_counter() - t0
+    batches, differ, walls, pcm_samples = [], [], {"pool": [], "local": []}, 0
+    sync = pooled._sync_bursts
+
+    def recorded(feeds):
+        out = sync(feeds)
+        batches.append(list(out[0]))
+        return out
+
+    pooled._sync_bursts = recorded
+    try:
+        chunks, _ = cycle_chunks(pooled, wide, POOL_VOICE_SECONDS)
+        for k, chunk in enumerate(chunks):
+            t0 = time.perf_counter()
+            local.process_wideband(chunk)
+            per = [vp.take_audio() for vp in pipes]
+            t1 = time.perf_counter()
+            batches.clear()
+            pooled.process_wideband(chunk)
+            got = pooled.pool.take_audio()
+            walls["local"].append(t1 - t0)
+            walls["pool"].append(time.perf_counter() - t1)
+            ids = batches[0] if batches else []
+            want = [per[c] for w in dict.fromkeys(c % W for c in ids)
+                    for c in ids if c % W == w]
+            want = np.concatenate(want) if want else np.zeros(0, np.int16)
+            pcm_samples += len(want)
+            if not np.array_equal(got, want) or sum(map(len, per)) != len(
+                    want):
+                differ.append(dict(cycle=k, carriers=[
+                    c for c in range(n) if len(per[c])]))
+        sdus = [(decrypted_sdus(pooled.pool.views[c].events),
+                 decrypted_sdus(local.mac[c].upper.events))
+                for c in range(n)]
+    finally:
+        pooled.pool.close()
+    check(not differ, f"pooled voice PCM differs from the in-process PCM "
+          f"(CPU workers vs the card) in cycles {differ}")
+    check(pcm_samples >= 480 * 10 * n, f"only {pcm_samples} PCM samples")
+    check(all(a == b for a, b in sdus) and sum(a for a, _ in sdus) > 0,
+          f"decrypted SDUs per carrier, pooled vs in-process: {sdus}")
+    check(all(pooled.locked(c) for c in range(n)),
+          "a pooled voice carrier is unlocked")
+    return dict(carriers=n, workers=W, air_s=POOL_VOICE_SECONDS,
+                spawn_s=spawn_s, cycles=len(chunks) - 1,
+                pcm_samples=pcm_samples,
+                decrypted_sdus=sum(a for a, _ in sdus),
+                cycle_ms_pool=float(np.mean(walls["pool"][1:])) * 1e3,
+                cycle_ms_in_process=float(np.mean(walls["local"][1:]))
+                * 1e3)
+
+
+def phase_slice_mesh(dev, wide: np.ndarray) -> dict:
+    """(a) The mesh's superblock step on a 1x1 (host, chip) mesh in this
+    process (one gloo rank): MESH_SUPERBLOCKS superblocks of the fleet
+    slice's staged air at n_ch = 256, wb_k = 8 (K4 over the band, the
+    resample kernel alone, K1, K2 lean), its launches counted over those
+    steps alone; then its packed words against _wideband_step_scan on the
+    same windows (K3 in one call): rows [:-1] equal, the dist-sum row
+    within 2e-3 relative, and the all-reduced health equal to the sums of
+    its own rows.  (b) The multihost launcher's one-card rehearsal as a
+    subprocess: 2 hosts x 1 chip, two gloo ranks on this card, 256
+    channels a host, --selftest; both hosts must print SELFTEST PASS."""
+    import torch.distributed as dist
+
+    from tetra_tpu_torch.parallel import mesh as M
+
+    t36 = T50 * 18 // 25
+    n_chunks = DF.n_chunks_for(t36)
+    with tempfile.TemporaryDirectory() as tmp:
+        M.init_distributed("gloo", "file://" + os.path.join(tmp, "rdv"), 1,
+                           0, dev)
+        try:
+            mesh = M.make_mesh_2d(1, 1, dev)
+            step, wide_len, adv = M.sharded_wideband_superblock_step(
+                mesh, N_CH, t50_new=T50, kw=WB_K)
+            staged = staged_windows(wide, adv, wide_len, WB_K,
+                                    dev)[:MESH_SUPERBLOCKS]
+            state = M.sharded_wideband_demod_init(mesh, N_CH, dev)
+            torch.cuda.synchronize()
+            wrappers = zero_launches()
+            CK.resample.launches = 0
+            t0 = time.perf_counter()
+            outs = []
+            for wr, wi in staged:
+                state, out, health, c0 = step(state, wr, wi)
+                outs.append((out, health, c0))
+            torch.cuda.synchronize()
+            mesh_ms = (time.perf_counter() - t0) * 1e3 / len(staged)
+            launches = read_launches(wrappers)
+            launches["resample (K3's second kernel)"] = CK.resample.launches
+        finally:
+            dist.destroy_process_group()
+    for name in ("K1 agc_fll_rrc", "K2 mm_costas", "K4 fold_dft",
+                 "resample (K3's second kernel)"):
+        check(launches[name] == WB_K * len(staged),
+              f"mesh: {name} launched {launches[name]} times")
+    check(launches["K3 fold_dft_resample"] == 0,
+          "mesh: K3 launched as one call")
+    dstate = DF.demod_init(N_CH, dev)
+    hr = hi = torch.zeros((CH.RS_TAPS_PER_PHASE - 1, N_CH), device=dev)
+    dist_err = 0.0
+    for (wr, wi), (out, health, c0) in zip(staged, outs):
+        dstate, ref, hr, hi = R._wideband_step_scan(
+            dstate, wr, wi, hr, hi, N_CH, t36, n_chunks, False, WB_K)
+        check(c0 == 0 and torch.equal(out[:-1], ref[:-1]),
+              "mesh superblock words differ from _wideband_step_scan's")
+        d, r = (x[-1].view(torch.float32).double() for x in (out, ref))
+        dist_err = max(dist_err, float(((d - r).abs()
+                                        / r.abs().clamp(min=1e-30)).max()))
+        want = torch.stack([out[-2].view(torch.float32).double().sum(),
+                            d.sum()])
+        check(bool(torch.allclose(health.double(), want, rtol=1e-5)),
+              f"mesh health {health} vs its rows' sums {want}")
+    check(dist_err <= 2e-3, f"mesh dist-sum row off by {dist_err} "
+          f"relative")
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root)
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "tetra_tpu_torch.apps.multihost", "--hosts",
+         "2", "--chips", "1", "--channels", str(N_CH), "--selftest",
+         "--backend", "gloo", "--status-every", "0"], cwd=root, env=env,
+        capture_output=True, text=True, timeout=400)
+    wall = time.perf_counter() - t0
+    lines = res.stdout.splitlines()
+    check(res.returncode == 0 and "mesh (host=2, chip=1)" in res.stdout
+          and all(f"[host {h}] SELFTEST PASS" in lines for h in range(2)),
+          f"multihost rehearsal failed (rc {res.returncode}):\n"
+          f"{res.stdout[-3000:]}\n{res.stderr[-3000:]}")
+    rates = [float(ln.split(" MS/s/host")[0].rsplit(" ", 1)[1])
+             for ln in lines if " done: " in ln]
+    return dict(superblocks=len(staged), wb_k=WB_K, channels=N_CH,
+                superblock_ms=mesh_ms, launches=launches,
+                dist_row_max_rel_err=dist_err,
+                multihost=dict(hosts=2, chips=1, backend="gloo",
+                               wall_s=wall, msps_per_host=rates,
+                               lines=[ln for ln in lines if "done:" in ln
+                                      or "SELFTEST" in ln or "mesh" in ln]))
+
+
 
 def main() -> None:
     if not torch.cuda.is_available():
@@ -1315,8 +1578,17 @@ def main() -> None:
     rows = demod + front
     sl = phase_slice(dev, wide)
     print(f"slice: gpu=[{gpu}] " + json.dumps(sl), flush=True)
-    nf = phase_slice_nonfleet(dev, wide)
+    nf_rx = []
+    nf = phase_slice_nonfleet(dev, wide, attach=nf_rx.append)
     print(f"slice_nonfleet: gpu=[{gpu}] " + json.dumps(nf), flush=True)
+    t0 = time.perf_counter()
+    pool = phase_slice_pool(dev, wide, nf_rx.pop())
+    pool["phase_s"] = time.perf_counter() - t0
+    print(f"slice_pool: gpu=[{gpu}] " + json.dumps(pool), flush=True)
+    t0 = time.perf_counter()
+    mesh = phase_slice_mesh(dev, wide)
+    mesh["phase_s"] = time.perf_counter() - t0
+    print(f"slice_mesh: gpu=[{gpu}] " + json.dumps(mesh), flush=True)
     voice = phase_slice_voice(dev, nf)
     modes, warm = phase_slice_modes(dev, wide)
     del wide
@@ -1336,6 +1608,11 @@ def main() -> None:
                     launches_per_cycle_nonfleet=nf["launches_per_cycle"][
                         r["name"]],
                     launches_modes=modes["launches"][r["name"]],
+                    launches_pool=pool["launches"][r["name"]],
+                    launches_mesh=mesh["launches"][
+                        "resample (K3's second kernel)"
+                        if r["name"] == "K3 fold_dft_resample"
+                        else r["name"]],
                     max_abs_err=r["max_abs_err"], ms=r["ms"],
                     plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                     bound_by=r["bound_by"], library_ms=r["library_ms"],

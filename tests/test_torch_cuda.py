@@ -233,3 +233,47 @@ def test_k2_layouts_agree(dev, C, spread):
     assert torch.equal(k1[2][v], p1[2][v])
     for i in (0, 1, 4):
         assert _maxerr(k1[i][v], p1[i][v]) <= 1e-3, i
+
+
+@pytest.mark.parametrize("n_ch", [48])
+def test_mesh_superblock_1x1_matches_superblock_scan(dev, tmp_path, n_ch):
+    """The mesh's superblock step on a 1x1 mesh (one gloo rank: K4, then
+    the resample kernel alone, K1, K2 lean) against the single-card
+    superblock (rx/receiver._wideband_step_scan: K3 in one call) at a
+    ragged channel count (K4's matrix-DFT path, masked resample lanes),
+    three superblocks of noise in a row: the packed words equal (rows
+    [:-1]), the dist-sum row within 2e-3 relative; each step launches K4,
+    the resample, K1 and K2 once a cycle."""
+    import torch.distributed as dist
+
+    from tetra_tpu_torch.parallel import mesh as M
+    from tetra_tpu_torch.rx import receiver as R
+
+    kw, t50 = 2, 800
+    t36 = t50 * 18 // 25
+    n_chunks = DF.n_chunks_for(t36)
+    M.init_distributed("gloo", f"file://{tmp_path}/rendezvous", 1, 0, dev)
+    try:
+        mesh = M.make_mesh_2d(1, 1, dev)
+        step, wide_len, _ = M.sharded_wideband_superblock_step(
+            mesh, n_ch, t50_new=t50, kw=kw)
+        state = M.sharded_wideband_demod_init(mesh, n_ch, dev)
+        dstate, hr, hi = M.sharded_wideband_demod_init(mesh, n_ch, dev)
+        rng = np.random.default_rng(n_ch)
+        wrappers = (CK.fold_dft, CK.resample, DK.agc_fll_rrc, MK.mm_costas)
+        for _ in range(3):
+            wr, wi = (torch.from_numpy(rng.standard_normal(
+                (kw, wide_len)).astype(np.float32)).to(dev)
+                for _ in range(2))
+            n0 = [w.launches for w in wrappers]
+            state, out, health, c0 = step(state, wr, wi)
+            assert [w.launches - n for w, n in zip(wrappers, n0)] == [kw] * 4
+            dstate, ref, hr, hi = R._wideband_step_scan(
+                dstate, wr, wi, hr, hi, n_ch, t36, n_chunks, False, kw)
+            assert c0 == 0 and out.shape == ref.shape
+            assert torch.equal(out[:-1], ref[:-1])
+            d, r = out[-1].view(torch.float32), ref[-1].view(torch.float32)
+            assert bool(((d - r).abs() <= 2e-3 * r.abs()).all())
+            assert torch.allclose(health[1], r.sum(), rtol=1e-5)
+    finally:
+        dist.destroy_process_group()

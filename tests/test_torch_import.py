@@ -56,7 +56,8 @@ def test_port_covers_the_slice_layout():
               "voice.acelp", "voice.channel", "voice.pipeline",
               "voice.audio_out", "core.loops", "rx.demod_ff",
               "tx.modulator", "tx.channel", "tx.modulator2",
-              "runtime.iq_stream", "apps.tetra_rx", "apps.tetra_tx"):
+              "runtime.iq_stream", "apps.tetra_rx", "apps.tetra_tx",
+              "rx.hostpool", "parallel.mesh", "apps.multihost"):
         assert "tetra_tpu_torch." + m in mods, m
 
 

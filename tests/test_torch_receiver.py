@@ -144,7 +144,6 @@ def test_narrowband_fleet_matches_jax():
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(mac_workers=2), "item 17"),
     (dict(fleet=True, wideband=8, wb_k=2, wb_pipeline=True), "Not ported"),
 ])
 def test_unported_modes_raise(kw, item):
@@ -156,27 +155,47 @@ def test_unported_modes_raise(kw, item):
     (dict(mode="ff"), "FfDemodState", False),
     (dict(fleet=True, mode="exact"), "DemodState", True),
     (dict(keystore="keys.txt"), "FastDemodState", False),
+    (dict(mac_workers=2), "FastDemodState", False),
 ])
 def test_ported_modes_construct(kw, state, fleet):
     """mode="ff" and mode="exact" (per-channel and fleet) construct with
     their chain's state, as the reference's do; keystore= without
-    mac_workers is accepted and unused, as in the reference."""
+    mac_workers is accepted and unused, as in the reference; mac_workers=2
+    starts the MAC pool's two workers in place of the per-channel MACs,
+    as the reference's does."""
     rx = TetraReceiver(channels=2, device="cpu", **kw)
     ref = JaxReceiver(channels=2, **kw)
-    assert type(rx.state).__name__ == type(ref.state).__name__ == state
-    assert (rx.fleet is not None) == fleet
-    assert rx.state.agc_gain.device.type == "cpu"
+    try:
+        assert type(rx.state).__name__ == type(ref.state).__name__ == state
+        assert (rx.fleet is not None) == fleet
+        assert rx.state.agc_gain.device.type == "cpu"
+        assert (rx.pool is not None) == (ref.pool is not None) == bool(
+            kw.get("mac_workers"))
+        assert len(rx.mac) == len(ref.mac)
+        if rx.pool is not None:
+            assert rx.pool.device.type == "cpu" and rx.pool.workers == 2
+            assert rx.display(1).as_dict() == ref.display(1).as_dict()
+            assert rx.crc_counts(1) == ref.crc_counts(1) == (0, 0)
+            with pytest.raises(NotImplementedError, match="pool"):
+                rx.save_state("unused.npz")
+    finally:
+        for r in (rx, ref):
+            if r.pool is not None:
+                r.pool.close()
 
 
 @pytest.mark.parametrize("kw,match", [
     (dict(wideband=8, mode="ff"), "fast chain only"),
     (dict(mode="fastest"), "mode="),
     (dict(fleet=True, keystore="keys.txt"), "keystore"),
+    (dict(fleet=True, mac_workers=2), "mac_workers"),
+    (dict(mac_workers=2, voice_cb=print), "voice=True"),
 ])
 def test_invalid_mode_combinations_raise(kw, match):
     """The reference asserts these (wideband fusion runs the fast chain;
-    fleet mode takes no keystore); the port raises ValueError, and also
-    for a mode it does not know."""
+    fleet mode takes no keystore and no MAC pool; the pool takes voice=True,
+    not a voice_cb); the port raises ValueError, and also for a mode it
+    does not know."""
     with pytest.raises(ValueError, match=match):
         TetraReceiver(channels=2, device="cpu", **kw)
 

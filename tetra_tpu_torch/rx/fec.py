@@ -6,11 +6,13 @@ Ported: the per-type block decode (decode_block), the fused mixed-type
 decode the per-channel receiver runs once per cycle (decode_blocks_mixed),
 the typed packed decode the fleet engine runs every cycle
 (decode_rows_typed_packed: SB1/SB2/NDB rows on a 144-step trellis, SCH-F
-rows on 288 steps, BBK rows by RM(30,14)) and the unpacked mixed decode
+rows on 288 steps, BBK rows by RM(30,14)), the unpacked mixed decode
 that the fleet falls back to when one cycle holds more than 15 cells
-(decode_rows_mixed).  Eager PyTorch needs no fixed shapes, so the
-reference's padding buckets and chunking are not ported: every call
-decodes exactly its rows.  Results are bit-exact vs the reference.
+(decode_rows_mixed) and the packed mixed decode of the row-sharded FEC
+(_decode_mixed_packed, parallel/mesh.sharded_fec_decode).  Eager PyTorch
+needs no fixed shapes, so the reference's padding buckets and chunking
+are not ported: every call decodes exactly its rows.  Results are
+bit-exact vs the reference.
 """
 
 from __future__ import annotations
@@ -332,6 +334,18 @@ def _pack_t1(type1pad: torch.Tensor, ok: torch.Tensor) -> torch.Tensor:
     """(B, 272) bits + (B,) ok -> (B, 35) uint8 [packed type1 | ok]."""
     return torch.cat([_pack_bits(type1pad), ok[:, None].to(torch.uint8)],
                      dim=1)
+
+
+def _decode_mixed_packed(t5p, ks_table, scramb_idx, tsel):
+    """The mixed decode on packed rows, on the rows' device: t5p (B, 54)
+    uint8 MSB-first type-5 rows, scramb_idx (B,) slots of the (16, 432)
+    keystream table, tsel (B,) variant ids -> (B, 35) uint8 [packed type1
+    | ok].  The program of the reference's row-sharded FEC
+    (parallel/mesh.sharded_fec_decode)."""
+    type5 = _unpack_rows(t5p, _MIX_T345)
+    type1, ok = _decode_mixed_core(type5, _ks_from_table(ks_table,
+                                                         scramb_idx), tsel)
+    return _pack_t1(type1, ok)
 
 
 def _decode_short_packed(t5p, ks_table, scramb_idx, tsel):

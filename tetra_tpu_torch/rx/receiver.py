@@ -20,8 +20,11 @@ crypto.state.CryptoState on rx.mac[c].upper.crypto_state.
 The narrowband receivers (process() of 36 ksps blocks) also run the other
 two demod chains: mode="ff", the feedforward block receiver
 (rx/demod_ff), and mode="exact", the per-sample parity chain (rx/demod);
-neither launches a kernel.  mac_workers > 0 (the host MAC pool, ROADMAP
-Queue 1 item 17) raises NotImplementedError.
+neither launches a kernel.
+
+mac_workers=W > 0 (per-channel receivers) keeps the demod, burst sync and
+the batched FEC here and shards the MAC dispatch, voice and decryption
+over W CPU worker processes (rx/hostpool.MacPool).
 """
 
 from __future__ import annotations
@@ -36,7 +39,9 @@ from . import demod as demod_exact
 from . import demod_fast, demod_ff
 from .burst_sync import RX_LOCKED, RX_UNLOCKED, BurstSync, device_acquire_scan
 from .demod import dibits_to_bits
+from .display import DisplayState
 from .fleet import FleetEngine
+from .hostpool import MacPool
 from .lower_mac import LowerMac, process_bursts_multi
 from .tdma import PhyState
 
@@ -152,6 +157,15 @@ class TetraReceiver:
         no-ops (the reference pipelines fleet superblocks only); True in
         fleet mode is not ported (ROADMAP "Not ported").
 
+        mac_workers: > 0 shards the host MAC dispatch over that many CPU
+        worker processes (rx/hostpool.MacPool); the FEC stays batched on
+        this receiver's device.  In pool mode use voice=True (worker-side
+        pipelines, rx.pool.take_audio()) instead of voice_cb, keystore=
+        for worker-side decryption; display(c), crc_counts(c) and the
+        events (rx.pool.views[c].events) come from the workers' snapshots,
+        and save_state is unsupported, as in the reference.  Close the
+        workers with rx.pool.close().
+
         voice: as in the reference, it selects worker-side voice pipelines
         in the MAC pool (mac_workers) and is otherwise unused; per-channel
         voice is a VoicePipeline on rx.mac[c].voice_cb (or voice_cb= for
@@ -166,20 +180,18 @@ class TetraReceiver:
         keystore: as in the reference, the pooled receiver's worker-side
         keys (mac_workers); otherwise unused (per-channel decryption is a
         crypto.state.CryptoState on rx.mac[c].upper.crypto_state).  Fleet
-        mode takes none.
-
-        Not ported yet: mac_workers > 0 (ROADMAP Queue 1 item 17) raises
-        NotImplementedError."""
+        mode takes none."""
         demods = {"fast": demod_fast, "ff": demod_ff, "exact": demod_exact}
         if mode not in demods:
             raise ValueError(f"mode={mode!r}: one of {sorted(demods)}")
         if wideband and mode != "fast":
             raise ValueError(f"wideband={wideband} runs the fast chain only, "
                              f"not mode={mode!r}")
-        if mac_workers:
-            raise NotImplementedError(
-                "mac_workers: the host MAC pool is not ported "
-                "(ROADMAP Queue 1 item 17)")
+        if fleet and mac_workers:
+            raise ValueError("fleet mode replaces mac_workers: its engine "
+                             "dispatches the MAC in C++")
+        if mac_workers and voice_cb is not None:
+            raise ValueError("pool mode: use voice=True, not voice_cb")
         if fleet and keystore is not None:
             raise ValueError("fleet mode takes no keystore: crypto needs "
                              "the per-channel MAC")
@@ -201,6 +213,7 @@ class TetraReceiver:
         self.wideband = wideband
         self.wb_k = max(1, wb_k)
         self._const = None
+        self.pool = None
         if fleet:
             self.fleet = FleetEngine(channels, self.device, voice_cb=voice_cb)
             self.mac = []
@@ -208,10 +221,16 @@ class TetraReceiver:
             self.fleet = None
             self.phy = [PhyState() for _ in range(channels)]
             self.sync = [BurstSync(phy=p) for p in self.phy]
-            self.mac = [LowerMac(phy=p, voice_cb=voice_cb, device=self.device)
-                        for p in self.phy]
-            for m in self.mac:
-                m.upper.events_enabled = events
+            if mac_workers:
+                self.mac = []
+                self.pool = MacPool(channels, mac_workers, voice=voice,
+                                    keystore=keystore, events=events,
+                                    device=self.device)
+            else:
+                self.mac = [LowerMac(phy=p, voice_cb=voice_cb,
+                                     device=self.device) for p in self.phy]
+                for m in self.mac:
+                    m.upper.events_enabled = events
             self.device_acquire = (channels >= 64 if device_acquire is None
                                    else device_acquire)
             self.acquire_scans = 0      # device_acquire_scan calls
@@ -378,14 +397,19 @@ class TetraReceiver:
                 continue
             self.sym_quality[c] = float(dist[c][v].mean())
             feeds[c] = dibits_to_bits(dibits[c][v])
-        macs, bursts_list = self._sync_bursts(feeds)
-        if macs:
-            process_bursts_multi(macs, bursts_list)
+        chans, bursts_list = self._sync_bursts(feeds)
+        if not chans:
+            return
+        if self.pool is not None:
+            self.pool.process_bursts([self.phy[c] for c in chans], chans,
+                                     bursts_list)
+        else:
+            process_bursts_multi([self.mac[c] for c in chans], bursts_list)
 
     def _sync_bursts(self, feeds: dict):
         """Per-channel burst sync of the new bits, after one batched SYNC
         acquisition on the device for the unlocked channels.  Returns the
-        LowerMacs with new bursts and their burst lists."""
+        channels with new bursts and their burst lists."""
         if self.device_acquire:
             searching = [c for c in feeds
                          if self.sync[c].state == RX_UNLOCKED]
@@ -395,19 +419,22 @@ class TetraReceiver:
                                     pad_channels=self.channels,
                                     device=self.device)
                 self.acquire_scans += 1
-        macs, bursts_list = [], []
+        chans, bursts_list = [], []
         for c, bits in feeds.items():
             bursts = self.sync[c].feed(bits)
             if bursts:
-                macs.append(self.mac[c])
+                chans.append(c)
                 bursts_list.append(bursts)
-        return macs, bursts_list
+        return chans, bursts_list
 
     # -- views ---------------------------------------------------------------
 
     def display(self, c: int = 0):
         if self.fleet is not None:
             return self.fleet.display(c)
+        if self.pool is not None:
+            d = self.pool.views[c].display
+            return DisplayState(**d) if d else DisplayState()
         return self.mac[c].upper.display
 
     def locked(self, c: int = 0) -> bool:
@@ -429,6 +456,9 @@ class TetraReceiver:
     def crc_counts(self, c: int = 0) -> tuple[int, int]:
         if self.fleet is not None:
             return self.fleet.crc_counts(c)
+        if self.pool is not None:
+            v = self.pool.views[c]
+            return v.crc_oks, v.crc_fails
         return self.mac[c].crc_oks, self.mac[c].crc_fails
 
     def quality_ok(self, c: int = 0) -> bool:
@@ -442,7 +472,10 @@ class TetraReceiver:
         channel, the burst sync (lock, bit buffer, TDMA time) and the cell
         (scrambling, CRC tallies), then the wideband stream continuity.
         Event logs and fragment slots are transient and not saved, as in
-        the reference."""
+        the reference, which does not checkpoint the MAC pool either."""
+        if self.pool is not None:
+            raise NotImplementedError("checkpointing unsupported in "
+                                      "mac_workers pool mode")
         data = {f"demod_{k}": v.cpu().numpy()
                 for k, v in self.state._asdict().items()}
         if self.fleet is not None:
@@ -469,6 +502,9 @@ class TetraReceiver:
 
     def load_state(self, path: str) -> None:
         from ..convert import hist_from_numpy, state_from_numpy
+        if self.pool is not None:
+            raise NotImplementedError("checkpointing unsupported in "
+                                      "mac_workers pool mode")
         z = np.load(path)
         if (self.fleet is not None) != ("fleet_blob" in z.files):
             raise ValueError("checkpoint and receiver differ in fleet mode")
