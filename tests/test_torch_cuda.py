@@ -277,3 +277,88 @@ def test_mesh_superblock_1x1_matches_superblock_scan(dev, tmp_path, n_ch):
             assert torch.allclose(health[1], r.sum(), rtol=1e-5)
     finally:
         dist.destroy_process_group()
+
+
+def test_chunked_typed_fec_on_card_matches_cpu(dev):
+    """The typed packed FEC on the card, chunked (pinned uploads, fetches
+    on the copy stream) and in one pass, equals the CPU's decode."""
+    from tetra_tpu_torch import params as P
+    from tetra_tpu_torch.rx import fec as FEC
+    from tetra_tpu_torch.tx import fec_enc
+
+    rng = np.random.default_rng(4)
+    scr = P.scramb_get_init(262, 1234, 7)
+    ks = np.zeros((16, 432), np.uint8)
+    ks[0] = FEC.keystream(P.SCRAMB_INIT, 432)
+    ks[1] = FEC.keystream(scr, 432)
+    t5, types = [], []
+    for bt in (P.TPSAP_T_SB1, P.TPSAP_T_NDB, P.TPSAP_T_SCH_F,
+               P.TPSAP_T_BBK) * 40:
+        t1 = P.BLK_PARAMS[bt][3]
+        bits = fec_enc.encode_block(rng.integers(0, 2, t1).astype(np.uint8),
+                                    bt, P.SCRAMB_INIT if bt == P.TPSAP_T_SB1
+                                    else scr)
+        bits[rng.integers(0, len(bits), 3)] ^= 1
+        pad = np.zeros(432, np.uint8)
+        pad[:len(bits)] = bits
+        t5.append(np.packbits(pad))
+        types.append(bt)
+    t5p, types = np.stack(t5), np.asarray(types)
+    idx = np.ones(len(types), np.int32)
+    want = FEC.decode_rows_typed_packed(t5p, types, idx,
+                                        torch.from_numpy(ks))
+    for kw in (dict(), dict(short_bucket=16, schf_bucket=7, bbk_bucket=9)):
+        got = FEC.decode_rows_typed_packed(
+            t5p, types, idx, torch.from_numpy(ks).to(dev), **kw)
+        np.testing.assert_array_equal(got[1], want[1])
+        np.testing.assert_array_equal(got[0], want[0])
+    assert 0 < want[1].sum() < len(types)
+
+
+def test_pipelined_matches_sync_on_card(dev):
+    """8 carriers: the pcie receiver (superblock step on its side stream,
+    output through pinned buffers, chunked FEC) and its tunnel twin decode
+    the same staged windows bit-equal after flush_wideband(), and every
+    kernel the pcie receiver launches, and its packing's torch ops, go to
+    its side stream."""
+    from tetra_tpu_torch.ops import _build
+    from tetra_tpu_torch.rx import receiver as R
+    from tetra_tpu_torch.rx.receiver import TetraReceiver
+    from tetra_tpu_torch.tx.wideband import cell_air, staged_windows
+
+    n, k = 8, 2
+    pcie, tun = (TetraReceiver(wideband=n, fleet=True, wb_k=k,
+                               link_profile=p, device=dev)
+                 for p in ("pcie", "tunnel"))
+    assert pcie.wb_pipeline and not tun.wb_pipeline
+    staged = staged_windows(cell_air(n, 2.5, 2), pcie._wb["advance"],
+                            pcie._wb["wide_len"], k, dev)
+    seen = []
+    stream_of, pack = _build.stream_of, R.pack_cycle_tc
+
+    def spy_pack(*args):
+        seen.append(torch.cuda.current_stream(dev).cuda_stream)
+        return pack(*args)
+
+    try:
+        _build.stream_of = lambda t: seen.append(stream_of(t)) or seen[-1]
+        R.pack_cycle_tc = spy_pack
+        for sb in staged:
+            seen.clear()
+            pcie.process_wideband_staged(*sb)
+            assert len(seen) >= 4 * k and set(seen) == {
+                pcie._side.cuda_stream}
+            tun.process_wideband_staged(*sb)
+    finally:
+        _build.stream_of, R.pack_cycle_tc = stream_of, pack
+    pcie.flush_wideband()
+    tun.flush_wideband()
+    assert pcie._side.cuda_stream != torch.cuda.default_stream(
+        dev).cuda_stream
+    for c in range(n):
+        assert pcie.locked(c) == tun.locked(c), c
+        assert pcie.crc_counts(c) == tun.crc_counts(c), c
+        assert pcie.display(c).as_dict() == tun.display(c).as_dict(), c
+    assert pcie.fleet.state_bytes() == tun.fleet.state_bytes()
+    np.testing.assert_array_equal(pcie.sym_quality, tun.sym_quality)
+    assert sum(pcie.locked(c) for c in range(n)) >= n - 1

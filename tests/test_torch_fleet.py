@@ -1,0 +1,447 @@
+"""The port's fleet engine and pipelined fleet receiver against tetra_tpu's
+on the CPU: the split, typed and mixed packed FEC with and without chunking,
+FleetEngine's full signature (FEC program, buckets, worker threads, link
+profile) and accessors, and TetraReceiver's superblock pipeline
+(wb_pipeline, link_profile="pcie") with its one-superblock lag and
+flush_wideband().  Each test is the counterpart of one in
+tests/test_fleet.py (named in its docstring); JAX runs on the CPU.
+
+The receivers run on 8 carriers of two cells (200 slots, 25 dB SNR, 120 Hz
+CFO), fed one wb_k = 2 superblock a call; on this air the port's plain
+versions and the reference's XLA twins decode identically, so the
+observables are compared for equality."""
+
+import os
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tetra_tpu import params as P
+from tetra_tpu.rx import demod_fast as JDF
+from tetra_tpu.rx import fec as JF
+from tetra_tpu.rx.fleet import FleetEngine as JaxEngine
+from tetra_tpu.rx.receiver import TetraReceiver as JaxReceiver
+from tetra_tpu.rx.tdma import TdmaTime
+from tetra_tpu.tx import cell, fec_enc
+from tetra_tpu_torch.rx import demod_fast as TDF
+from tetra_tpu_torch.rx import fec as TF
+from tetra_tpu_torch.rx.fleet import FleetEngine
+from tetra_tpu_torch.rx.receiver import TetraReceiver
+from tests.test_torch_receiver_channel import (  # noqa: F401
+    cell_pair_air, one_torch_thread)
+
+N, KW = 8, 2
+SLOTS = 200
+FLUSHED_AT = {2, 4}          # mid-stream flushes of the pcie receiver
+CKPT_AT = 3                  # a checkpoint taken with a superblock pending
+START = TdmaTime(mn=1, fn=17, tn=4)
+TYPES = ((P.TPSAP_T_SB1, 120), (P.TPSAP_T_BBK, 30), (P.TPSAP_T_SB2, 216),
+         (P.TPSAP_T_NDB, 216), (P.TPSAP_T_SCH_F, 432))
+
+
+# -- the packed FEC --------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def packed_rows():
+    """30 packed type-5 rows, every downlink type: random ones, and rows
+    encoded for the table's two cells, clean or with 2 flipped bits;
+    returns (t5p, types, idx, ks)."""
+    rng = np.random.default_rng(10)
+    scr = P.scramb_get_init(262, 4321, 3)
+    ks = np.zeros((16, 432), np.uint8)
+    ks[0] = JF.keystream(P.SCRAMB_INIT, 432)
+    ks[1] = JF.keystream(scr, 432)
+    t5m, types, idx = [], [], []
+    for rep in range(6):
+        for bt, t345 in TYPES:
+            bits = rng.integers(0, 2, t345).astype(np.uint8)
+            if rep:
+                t1 = P.BLK_PARAMS[bt][3]
+                bits = fec_enc.encode_block(
+                    rng.integers(0, 2, t1).astype(np.uint8), bt,
+                    P.SCRAMB_INIT if bt == P.TPSAP_T_SB1 else scr)
+                if rep >= 4:
+                    bits[rng.choice(t345, 2, replace=False)] ^= 1
+            pad = np.zeros(432, np.uint8)
+            pad[:t345] = bits
+            t5m.append(np.packbits(pad))
+            types.append(bt)
+            idx.append(0 if bt == P.TPSAP_T_SB1 else 1)
+    return (np.stack(t5m), np.asarray(types), np.asarray(idx, np.int32), ks)
+
+
+def _both(name, rows, **kw):
+    t5p, types, idx, ks = rows
+    want = getattr(JF, name)(t5p, types, idx, jnp.asarray(ks), **kw)
+    got = getattr(TF, name)(t5p, types, idx, torch.from_numpy(ks), **kw)
+    np.testing.assert_array_equal(got[1], want[1])
+    np.testing.assert_array_equal(got[0], want[0])
+    return got
+
+
+@pytest.mark.parametrize("cch, bbk", [(0, 0), (8, 4)])
+def test_decode_rows_split_packed_matches_mixed_and_jax(packed_rows, cch,
+                                                        bbk):
+    """test_fleet.py:242: the split programs (full-width CCH, RM(30,14))
+    equal the mixed program, unchunked and chunked over buckets smaller
+    than the batch, and equal the reference's split decode."""
+    got = _both("decode_rows_split_packed", packed_rows, cch_bucket=cch,
+                bbk_bucket=bbk)
+    t5p, types, idx, ks = packed_rows
+    mixed = TF.decode_rows_mixed_packed(t5p, types, idx,
+                                        torch.from_numpy(ks))
+    np.testing.assert_array_equal(got[0], mixed[0])
+    np.testing.assert_array_equal(got[1], mixed[1])
+    assert 0 < got[1].sum() < len(types)
+
+
+@pytest.mark.parametrize("bucket", [0, 8, 21])
+def test_decode_rows_mixed_packed_chunking(bucket):
+    """test_fleet.py:468: min_bucket smaller than the batch chunks it with
+    the same results, equal to the reference's."""
+    rng = np.random.default_rng(13)
+    ks = np.zeros((16, 432), np.uint8)
+    ks[0] = JF.keystream(P.SCRAMB_INIT, 432)
+    n = 21
+    rows = (rng.integers(0, 256, (n, 54)).astype(np.uint8),
+            rng.integers(0, 4, n).astype(np.int64), np.zeros(n, np.int32),
+            ks)
+    got = _both("decode_rows_mixed_packed", rows, min_bucket=bucket)
+    one = TF.decode_rows_mixed_packed(*rows[:3], torch.from_numpy(ks))
+    np.testing.assert_array_equal(got[0], one[0])
+    np.testing.assert_array_equal(got[1], one[1])
+
+
+@pytest.mark.parametrize("short, schf, bbk", [(0, 0, 0), (8, 4, 4),
+                                              (5, 1, 3)])
+def test_decode_rows_typed_packed_matches_mixed_and_jax(packed_rows, short,
+                                                        schf, bbk):
+    """test_fleet.py:488: the typed programs, chunked or not, equal the
+    reference's typed decode byte for byte, and the mixed program on each
+    row's type-1 bytes (a short row's whole 16-byte head)."""
+    got = _both("decode_rows_typed_packed", packed_rows, short_bucket=short,
+                schf_bucket=schf, bbk_bucket=bbk)
+    t5p, types, idx, ks = packed_rows
+    want = TF.decode_rows_mixed_packed(t5p, types, idx, torch.from_numpy(ks))
+    np.testing.assert_array_equal(got[1], want[1])
+    nbytes = {P.TPSAP_T_SB1: 16, P.TPSAP_T_BBK: 2, P.TPSAP_T_SB2: 16,
+              P.TPSAP_T_NDB: 16, P.TPSAP_T_SCH_F: 34}
+    for r, bt in enumerate(types):
+        nb = nbytes[int(bt)]
+        np.testing.assert_array_equal(got[0][r, :nb], want[0][r, :nb])
+
+
+@pytest.mark.parametrize("min_bucket", [0, 64])
+def test_decode_rows_mixed_min_bucket(packed_rows, min_bucket):
+    """decode_rows_mixed takes the reference's min_bucket (a padding size
+    there, nothing here) and decodes as the reference does."""
+    t5p, types, _, _ = packed_rows
+    t5 = np.unpackbits(t5p, axis=1)[:, :432]
+    scr = np.full(len(types), P.scramb_get_init(262, 4321, 3), np.int64)
+    want = JF.decode_rows_mixed(t5, types, scr, min_bucket=min_bucket)
+    got = TF.decode_rows_mixed(t5, types, scr, "cpu", min_bucket=min_bucket)
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+
+
+# -- the fleet engine -------------------------------------------------------
+
+
+def _pack_words(dibm, valid, K, n_chunks):
+    """The pack_cycle_tc words of (C, K*T) dibits and per-chunk-prefix
+    valid flags, T = n_chunks * 32: (K*(2*n_chunks + ceil(n_chunks/4)), C)
+    int32."""
+    C = dibm.shape[0]
+    T = n_chunks * 32
+    cnt_words = -(-n_chunks // 4)
+    rows = []
+    for j in range(K):
+        d = dibm[:, j * T:(j + 1) * T].T.astype(np.int64)
+        v = valid[:, j * T:(j + 1) * T].T.astype(np.int64)
+        sym = (d & 3).reshape(T // 16, 16, C)
+        rows.append((sym << (2 * np.arange(16))[None, :, None]).sum(1))
+        counts = np.concatenate([v.reshape(n_chunks, 32, C).sum(1),
+                                 np.zeros((cnt_words * 4 - n_chunks, C),
+                                          np.int64)])
+        wc = counts.reshape(cnt_words, 4, C)
+        rows.append((wc << (8 * np.arange(4))[None, :, None]).sum(1))
+    return np.concatenate(rows).astype(np.uint32).view(np.int32)
+
+
+def _assert_same_engine(a, b, C):
+    """Every per-channel observable of two engines (either package)."""
+    for c in range(C):
+        x, y = a.chan(c), b.chan(c)
+        assert x.state == y.state, c
+        assert (x.start_bitnum, x.buf_len) == (y.start_bitnum, y.buf_len), c
+        assert bytes(x.buf[:x.buf_len]) == bytes(y.buf[:y.buf_len]), c
+        assert bytes(x.mac) == bytes(y.mac), c
+        assert a.crc_counts(c) == b.crc_counts(c), c
+        assert a.display(c).as_dict() == b.display(c).as_dict(), c
+        assert str(a.phy_time(c)) == str(b.phy_time(c)), c
+        assert a.lock_losses(c) == b.lock_losses(c), c
+    assert a.state_bytes() == b.state_bytes()
+
+
+@pytest.fixture(scope="module")
+def voice_feed():
+    """test_fleet.py:539's feed: 3 cells with traffic (SCH-F) on timeslot
+    2, 30 x 255 symbols of packed bytes."""
+    C, T = 3, 30 * 255
+    streams = []
+    for c in range(C):
+        vslots = {2: (lambda f=c: np.full(274, f % 2, np.uint8))}
+        bits, _ = cell.downlink_bits(
+            cell.CellConfig(mcc=262, mnc=50 + c, cc=2 + c), 2 * T // 255 + 2,
+            start=START, voice_slots=vslots)
+        streams.append(bits)
+    return np.stack([((s[0::2] << 1) | s[1::2]).astype(np.uint8)[:T] | 0x80
+                     for s in streams])
+
+
+@pytest.mark.parametrize("kind", ["split", "mixed"])
+def test_fleet_engine_fec_programs_match_typed_and_jax(voice_feed, kind):
+    """test_fleet.py:539: an engine on the split (or the mixed) FEC
+    program decodes exactly as the typed default, in both packages."""
+    kw = dict(split_fec=True) if kind == "split" else dict(typed_fec=False)
+    C = voice_feed.shape[0]
+    typed = FleetEngine(C, "cpu")
+    other = FleetEngine(C, "cpu", **kw)
+    ref = JaxEngine(C, **kw)
+    assert typed.typed_fec and not other.typed_fec
+    assert other.split_fec == ref.split_fec == (kind == "split")
+    for i in range(0, voice_feed.shape[1], 2400):
+        for f in (typed, other, ref):
+            f.process_packed(voice_feed[:, i:i + 2400])
+    _assert_same_engine(other, typed, C)
+    _assert_same_engine(other, ref, C)
+    for c in range(C):
+        assert typed.locked(c) and typed.crc_counts(c)[0] > 0, c
+
+
+def test_fleet_threads_bitexact_and_accessors_match_jax():
+    """test_fleet.py:571: the worker pool (threads=3 over 5 channels) and
+    the sequential engine end in identical state on both feed entries,
+    and so does the reference's engine: chan(c), phy_time(c),
+    lock_losses(c) and the state blob included."""
+    C, K, n_chunks = 5, 4, 75
+    T = n_chunks * 32
+    streams = []
+    for c in range(C):
+        bits, _ = cell.downlink_bits(
+            cell.CellConfig(mcc=262, mnc=60 + c, cc=1 + c),
+            2 * (K * T) // 255 + 4, start=START)
+        streams.append(((bits[0::2] << 1) | bits[1::2]).astype(np.uint8))
+    dibm = np.stack([s[:K * T] for s in streams])
+    packed = (dibm & 3) | 0x80
+    words = _pack_words(dibm[:, T:], np.ones_like(dibm[:, T:], bool), K - 1,
+                        n_chunks)
+    seq = FleetEngine(C, "cpu", threads=1)
+    par = FleetEngine(C, "cpu", threads=3)
+    ref = JaxEngine(C, threads=1)
+    assert (seq.threads, par.threads) == (1, 3)
+    n = set()
+    for f in (seq, par, ref):
+        f.process_packed(packed[:, :T])
+        n.add(f.process_packed2(words, K - 1, n_chunks))
+    assert len(n) == 1 and n.pop() > 0
+    _assert_same_engine(seq, par, C)
+    _assert_same_engine(seq, ref, C)
+    for c in range(C):
+        assert seq.locked(c) and seq.crc_counts(c)[0] > 0, c
+        assert seq.phy_time(c).mn > 0
+
+
+@pytest.mark.parametrize("profile", ["tunnel", "pcie"])
+@pytest.mark.parametrize("wideband, t50, wb_k", [(8, 6400, 2), (64, 1600, 4),
+                                                 (0, 6400, 1)])
+def test_receiver_engine_configuration_matches_jax(profile, wideband, t50,
+                                                   wb_k):
+    """The receiver sizes its engine's FEC chunks and passes its link
+    profile as the reference does; "pcie" pipelines the superblocks
+    (when wb_k > 1) and puts worker threads on every core, "tunnel" on
+    every core but one."""
+    kw = dict(wideband=wideband, t50=t50, wb_k=wb_k, fleet=True,
+              link_profile=profile)
+    if not wideband:
+        kw["channels"] = 64
+    got = TetraReceiver(device="cpu", **kw)
+    ref = JaxReceiver(events=False, **kw)
+    assert got.wb_pipeline == ref.wb_pipeline == (profile == "pcie"
+                                                  and wb_k > 1)
+    g, r = got.fleet, ref.fleet
+    for k in ("link_profile", "pad_rows", "typed_fec", "split_fec",
+              "short_bucket", "schf_bucket", "cch_bucket", "bbk_bucket"):
+        assert getattr(g, k) == getattr(r, k), k
+    cores = os.cpu_count()
+    assert g.threads == (cores if profile == "pcie" else max(1, cores - 1))
+
+
+def test_pcie_halves_the_typed_buckets_and_overrides():
+    """The pcie engine's typed chunks are half the tunnel's; an explicit
+    wb_pipeline= overrides the profile; TETRA_FLEET_THREADS and threads=
+    override the profile's thread count, threads= first."""
+    pcie = TetraReceiver(wideband=N, fleet=True, wb_k=KW, link_profile="pcie",
+                         device="cpu")
+    tun = TetraReceiver(wideband=N, fleet=True, wb_k=KW, device="cpu")
+    assert pcie.wb_pipeline and not tun.wb_pipeline
+    assert pcie.fleet.short_bucket == tun.fleet.short_bucket // 2
+    assert pcie.fleet.schf_bucket < tun.fleet.schf_bucket
+    assert not TetraReceiver(wideband=N, fleet=True, wb_k=KW,
+                             link_profile="pcie", wb_pipeline=False,
+                             device="cpu").wb_pipeline
+    assert TetraReceiver(wideband=N, fleet=True, wb_k=KW, wb_pipeline=True,
+                         device="cpu").wb_pipeline
+    assert not TetraReceiver(wideband=N, fleet=True, link_profile="pcie",
+                             device="cpu").wb_pipeline       # wb_k = 1
+    old = os.environ.get("TETRA_FLEET_THREADS")
+    os.environ["TETRA_FLEET_THREADS"] = "2"
+    try:
+        assert FleetEngine(4, "cpu", link_profile="pcie").threads == 2
+        assert FleetEngine(4, "cpu", threads=3).threads == 3
+    finally:
+        if old is None:
+            del os.environ["TETRA_FLEET_THREADS"]
+        else:
+            os.environ["TETRA_FLEET_THREADS"] = old
+    with pytest.raises(ValueError, match="link_profile"):
+        FleetEngine(4, "cpu", link_profile="wifi")
+
+
+@pytest.mark.parametrize("block_len", [1024, 4608, 6400])
+def test_demod_fast_max_symbols_matches_jax(block_len):
+    assert TDF.max_symbols(block_len) == JDF.max_symbols(block_len)
+
+
+# -- the pipelined receiver ---------------------------------------------------
+
+
+def _chunks(rx, wide):
+    """The stream as one wb_k-superblock feed a call (test_fleet.py:612)."""
+    adv, wl = rx._wb["advance"], rx._wb["wide_len"]
+    sb = KW * adv
+    n = (len(wide) - (wl - adv)) // sb
+    return [wide[s * sb:(s + 1) * sb + (wl - adv)][:sb] for s in range(n)]
+
+
+def _counts(rx):
+    return [rx.crc_counts(c) for c in range(N)]
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """The same superblock feeds into: the pcie receiver (flushed twice
+    mid-stream, checkpointed once with a superblock pending), its tunnel
+    twin, a tunnel-profile receiver with wb_pipeline=True, and the
+    reference's pipelined receiver; each flushed at the end.  Also the
+    CRC tallies of the pcie receiver and its twin after every feed."""
+    wide = cell_pair_air(N, SLOTS)
+    pcie = TetraReceiver(wideband=N, fleet=True, wb_k=KW, link_profile="pcie",
+                         device="cpu")
+    tunnel = TetraReceiver(wideband=N, fleet=True, wb_k=KW, device="cpu")
+    piped = TetraReceiver(wideband=N, fleet=True, wb_k=KW, wb_pipeline=True,
+                          device="cpu")
+    ref = JaxReceiver(wideband=N, fleet=True, events=False, wb_k=KW,
+                      wb_pipeline=True)
+    chunks = _chunks(pcie, wide)
+    ckpt = str(tmp_path_factory.mktemp("fleet") / "pending.npz")
+    steps = []
+    for s, chunk in enumerate(chunks):
+        for rx in (pcie, tunnel, piped, ref):
+            rx.process_wideband(chunk)
+        if s in FLUSHED_AT:
+            pcie.flush_wideband()
+            pcie.flush_wideband()
+        if s == CKPT_AT:
+            pcie.save_state(ckpt)
+        steps.append((_counts(pcie), _counts(tunnel)))
+    for rx in (pcie, tunnel, piped, ref):
+        rx.flush_wideband()
+    return dict(pcie=pcie, tunnel=tunnel, piped=piped, ref=ref, steps=steps,
+                chunks=chunks, ckpt=ckpt)
+
+
+def _assert_same_receivers(a, b):
+    for c in range(N):
+        assert a.locked(c) == b.locked(c), c
+        assert a.crc_counts(c) == b.crc_counts(c), c
+        assert a.display(c).as_dict() == b.display(c).as_dict(), c
+        assert a.fleet.lock_losses(c) == b.fleet.lock_losses(c), c
+    assert a.fleet.state_bytes() == b.fleet.state_bytes()
+
+
+def test_pcie_profile_matches_tunnel_twin(runs):
+    """test_fleet.py:702: the full pcie configuration (pipelined, halved
+    typed chunks, worker threads on every core) decodes after flush
+    exactly as its tunnel twin, which pipelines nothing."""
+    pcie, tunnel = runs["pcie"], runs["tunnel"]
+    assert pcie.wb_pipeline and not tunnel.wb_pipeline
+    assert len(runs["chunks"]) >= 6
+    _assert_same_receivers(pcie, tunnel)
+    np.testing.assert_array_equal(pcie.sym_quality, tunnel.sym_quality)
+    for c in range(N):
+        assert pcie.locked(c), c
+        assert pcie.display(c).mnc == 100 + c % 2, c
+        assert pcie.crc_counts(c)[0] > 10 * max(1, pcie.crc_counts(c)[1]), c
+
+
+def test_pipelined_matches_sync_and_jax_after_flush(runs):
+    """test_fleet.py:431: wb_pipeline=True defers each superblock's
+    decode by one feed; after flush_wideband() it equals the synchronous
+    receiver, and the reference's pipelined receiver, on every channel."""
+    piped, tunnel, ref = runs["piped"], runs["tunnel"], runs["ref"]
+    assert piped.wb_pipeline and piped.link_profile == "tunnel"
+    _assert_same_receivers(piped, tunnel)
+    _assert_same_receivers(piped, ref)
+    np.testing.assert_allclose(piped.sym_quality, ref.sym_quality, atol=2e-3)
+
+
+def test_pipelined_lag_contract_mid_stream(runs):
+    """test_fleet.py:612: unflushed, the pcie receiver's CRC tallies equal
+    its synchronous twin's one feed earlier; a flush (twice: idempotent)
+    brings them level at once, and the one-feed lag resumes on the next
+    feed; the last flush levels them."""
+    prev = [(0, 0)] * N
+    for s, (got, sync) in enumerate(runs["steps"]):
+        assert got == (sync if s in FLUSHED_AT else prev), s
+        prev = sync
+    assert _counts(runs["pcie"]) == _counts(runs["tunnel"])
+
+
+def test_checkpoint_with_a_pending_superblock_as_in_jax(runs):
+    """A checkpoint taken while a superblock is pending does not flush,
+    as in the reference: restored into either package and fed the rest of
+    the stream, both decode the same, and both miss the pending
+    superblock (fewer CRC passes than the uninterrupted receiver)."""
+    got = TetraReceiver(wideband=N, fleet=True, wb_k=KW, link_profile="pcie",
+                        device="cpu")
+    ref = JaxReceiver(wideband=N, fleet=True, events=False, wb_k=KW,
+                      wb_pipeline=True)
+    for rx in (got, ref):
+        rx.load_state(runs["ckpt"])
+        for chunk in runs["chunks"][CKPT_AT + 1:]:
+            rx.process_wideband(chunk)
+        rx.flush_wideband()
+    _assert_same_receivers(got, ref)
+    whole = sum(ok for ok, _ in _counts(runs["pcie"]))
+    assert sum(ok for ok, _ in _counts(got)) < whole
+
+
+def test_cli_link_profile_pcie_matches_jax(tmp_path):
+    """tetra_rx --fleet --wideband 4 --wb-k 2 --link-profile pcie runs the
+    pipeline and prints the reference CLI's summary: neither CLI flushes
+    at the end of the stream, so both leave out the last superblock."""
+    from tests.test_torch_cli import last_json, run
+
+    path = str(tmp_path / "wide.cf32")
+    cell_pair_air(4, 150).astype(np.complex64).tofile(path)
+    args = (path, "--wideband", 4, "--fleet", "--wb-k", KW,
+            "--link-profile", "pcie", "--status-every", 100)
+    got, ref = (last_json(run(pkg, "tetra_rx", *args))
+                for pkg in ("tetra_tpu_torch", "tetra_tpu"))
+    assert got == ref
+    assert all(s["locked"] and s["mnc"] == 100 + s["channel"] % 2
+               for s in got), got

@@ -118,6 +118,31 @@ iq = modulate(np.random.default_rng(2).integers(0, 2, (2, 2048)),
 for mod, T in ((demod_ff, 1024), (demod, 512)):
     st, o = mod.demod_block(mod.demod_init(2, 'cpu'), iq[:, :T])
     assert int(o['valid'].sum()) > 0.4 * T, mod
+# the fleet's three packed FEC decodes, chunked, and a pipelined pcie
+# fleet receiver with the engine's accessors
+import torch
+from tetra_tpu_torch import params as P
+from tetra_tpu_torch.rx import demod_fast, fec
+from tetra_tpu_torch.rx.receiver import TetraReceiver
+assert demod_fast.max_symbols(4608) == demod_fast.n_chunks_for(4608) * 32
+ks = torch.from_numpy(np.stack([fec.keystream(P.SCRAMB_INIT, 432)] * 16))
+t5p = np.random.default_rng(3).integers(0, 256, (12, 54)).astype(np.uint8)
+types = np.array([P.TPSAP_T_SB1, P.TPSAP_T_NDB, P.TPSAP_T_SCH_F,
+                  P.TPSAP_T_BBK] * 3)
+idx = np.zeros(12, np.int32)
+oks = [f(t5p, types, idx, ks, **kw)[1] for f, kw in (
+    (fec.decode_rows_typed_packed, dict(short_bucket=2, schf_bucket=1)),
+    (fec.decode_rows_split_packed, dict(cch_bucket=4, bbk_bucket=2)),
+    (fec.decode_rows_mixed_packed, dict(min_bucket=5)))]
+assert all((o == oks[0]).all() for o in oks), oks
+rx = TetraReceiver(wideband=8, fleet=True, wb_k=2, link_profile='pcie',
+                   device='cpu')
+assert rx.wb_pipeline and rx.fleet.link_profile == 'pcie'
+rx.process_wideband(cell_air(8, 1.2, 2))
+rx.flush_wideband()
+assert any(rx.locked(c) for c in range(8))
+assert rx.fleet.chan(0).state == 2 or not rx.locked(0)
+assert rx.fleet.lock_losses(0) >= 0 and rx.fleet.phy_time(0).tn >= 0
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'tetra_tpu'))
 assert not bad, bad
@@ -130,8 +155,10 @@ def test_runs_without_jax_or_tetra_tpu():
     chip_smoke import, the cell_air fixture runs (4 channels, 0.1 s), the
     C++ sources of the fleet engine and of the native MAC lie inside
     tetra_tpu_torch/, a BurstSync + LowerMac decode of a cell runs, and so
-    do a speech slot's decode and synthesis, a TEA1 keystream, and one
-    block each of the ff and exact demod chains."""
+    do a speech slot's decode and synthesis, a TEA1 keystream, one block
+    each of the ff and exact demod chains, the fleet's typed, split and
+    mixed packed FEC decodes in chunks, and a pipelined pcie fleet
+    receiver over 1.2 s of air."""
     mods = _modules() + ["chip_smoke"]
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = ROOT

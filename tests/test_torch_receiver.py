@@ -143,14 +143,6 @@ def test_narrowband_fleet_matches_jax():
     assert sum(got.crc_counts(c)[0] for c in range(4)) > 0
 
 
-@pytest.mark.parametrize("kw,item", [
-    (dict(fleet=True, wideband=8, wb_k=2, wb_pipeline=True), "Not ported"),
-])
-def test_unported_modes_raise(kw, item):
-    with pytest.raises(NotImplementedError, match="ROADMAP.*" + item):
-        TetraReceiver(channels=2, device="cpu", **kw)
-
-
 @pytest.mark.parametrize("kw,state,fleet", [
     (dict(mode="ff"), "FfDemodState", False),
     (dict(fleet=True, mode="exact"), "DemodState", True),
@@ -220,9 +212,10 @@ def test_reference_call_forms():
                            wideband=8, fleet=True, wb_k=2,
                            link_profile=profile, device="cpu")
         assert rx.fleet is not None and rx.link_profile == profile
-    for pipeline in (False, None):
-        TetraReceiver(wideband=8, t50=1600, fleet=True, events=False, wb_k=2,
-                      wb_pipeline=pipeline, device="cpu")
+    for pipeline in (False, None, True):
+        rx = TetraReceiver(wideband=8, t50=1600, fleet=True, events=False,
+                           wb_k=2, wb_pipeline=pipeline, device="cpu")
+        assert rx.wb_pipeline == bool(pipeline)
     # events=True is ignored in fleet mode, as the reference's fleet
     # implies events=False
     TetraReceiver(wideband=8, fleet=True, events=True, device="cpu")

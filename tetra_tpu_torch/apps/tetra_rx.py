@@ -332,10 +332,14 @@ def main(argv=None):
                          "(implies no event log / no --keystore)")
     ap.add_argument("--link-profile", choices=("tunnel", "pcie"),
                     default="tunnel",
-                    help="device-link deployment profile: pcie enables the "
-                         "mechanisms that lose on serialized tunnels "
-                         "(wb_pipeline double-buffering, chunked typed-FEC "
-                         "upload/fetch overlap, all-cores fleet workers)")
+                    help="with --fleet: pcie (a locally attached card) "
+                         "double-buffers the superblocks when --wb-k > 1 "
+                         "(the device step on a side CUDA stream while the "
+                         "host decodes the previous one; the summary then "
+                         "lacks the last superblock, as in the JAX CLI), "
+                         "halves the typed-FEC chunks so fetches overlap "
+                         "the trellis, and puts fleet workers on every "
+                         "core; tunnel keeps one chunk and cores-1 workers")
     ap.add_argument("--wb-k", type=int, default=1, metavar="K",
                     help="with --fleet --wideband: superblock depth "
                          "(demod cycles per device dispatch+fetch; "

@@ -140,6 +140,11 @@ def n_chunks_for(block_len: int) -> int:
     return n + (n & 1)
 
 
+def max_symbols(block_len: int) -> int:
+    """Symbol slots of a block's demod output."""
+    return n_chunks_for(block_len) * K_SYM
+
+
 def _fll_tap_offsets(KG: int) -> np.ndarray:
     """Parity-balanced decimated band-edge tap positions in a KG-sample
     group."""

@@ -4,15 +4,23 @@ one pass on the device of the rows (or of the keystream table).
 
 Ported: the per-type block decode (decode_block), the fused mixed-type
 decode the per-channel receiver runs once per cycle (decode_blocks_mixed),
-the typed packed decode the fleet engine runs every cycle
-(decode_rows_typed_packed: SB1/SB2/NDB rows on a 144-step trellis, SCH-F
-rows on 288 steps, BBK rows by RM(30,14)), the unpacked mixed decode
-that the fleet falls back to when one cycle holds more than 15 cells
-(decode_rows_mixed) and the packed mixed decode of the row-sharded FEC
-(_decode_mixed_packed, parallel/mesh.sharded_fec_decode).  Eager PyTorch
-needs no fixed shapes, so the reference's padding buckets and chunking
-are not ported: every call decodes exactly its rows.  Results are
-bit-exact vs the reference.
+and the fleet engine's three packed decodes, chosen by FleetEngine as the
+reference chooses them: by row type (decode_rows_typed_packed, the
+default: SB1/SB2/NDB rows on a 144-step trellis, SCH-F rows on 288 steps,
+BBK rows by RM(30,14)), CCH vs BBK at full width (decode_rows_split_packed)
+and every row in the one mixed program (decode_rows_mixed_packed, whose
+program _decode_mixed_packed the row-sharded FEC also runs); and the
+unpacked mixed decode the fleet falls back to when one cycle holds more
+than 15 cells (decode_rows_mixed).
+
+The packed decodes take the reference's bucket sizes as CHUNK sizes: a
+batch larger than a bucket runs as several calls of its program, every
+chunk uploaded and enqueued before any result is fetched (on CUDA the
+fetches run on a second stream, so chunk j's copy overlaps chunk j+1's
+trellis).  The reference also pads each chunk up to its bucket, to keep
+one compiled XLA shape; eager PyTorch has no compiled shapes, so nothing
+is padded: every call decodes exactly its rows.  Results, in input row
+order, are bit-exact vs the reference for any bucket.
 """
 
 from __future__ import annotations
@@ -281,11 +289,14 @@ def decode_blocks_mixed(blocks: list[tuple[int, np.ndarray, int]], device
 
 
 def decode_rows_mixed(t5: np.ndarray, blk_types: np.ndarray,
-                      scrambs: np.ndarray, device
+                      scrambs: np.ndarray, device, min_bucket: int = 0
                       ) -> tuple[np.ndarray, np.ndarray]:
     """t5: (N, 432) uint8 type-5 rows zero-padded past each type's length;
     blk_types/scrambs: (N,).  Returns (type1 (N, 268) uint8, ok (N,) bool),
-    decoded on `device`.  SB1 rows use SCRAMB_INIT whatever scramb says."""
+    decoded on `device` in one pass.  SB1 rows use SCRAMB_INIT whatever
+    scramb says.  min_bucket is accepted as the reference's: there it only
+    pads the batch to one compiled shape, which eager PyTorch does not
+    need, so it changes nothing here."""
     tsel = _MIX_TSEL_OF[np.asarray(blk_types, np.int64)]
     if (tsel < 0).any():
         raise ValueError("row type outside the mixed decode's variant table")
@@ -386,34 +397,164 @@ def _decode_bbk_packed(t5p4, ks_table, scramb_idx):
     return _pack_t1(torch.cat([info14, pad], dim=1), ok)
 
 
-def decode_rows_typed_packed(t5p: np.ndarray, blk_types: np.ndarray,
-                             scramb_idx: np.ndarray, ks_table: torch.Tensor
-                             ) -> tuple[np.ndarray, np.ndarray]:
-    """Packed decode by row type on ks_table's device: t5p (N, 54) packed
-    type-5 rows, scramb_idx (N,) slots of the (16, 432) keystream table
-    (slot 0 = SCRAMB_INIT; SB1 rows are forced to it).  Returns (packed
-    type1 (N, 34) uint8, ok (N,) bool) in input row order."""
-    N = len(blk_types)
+def _decode_cch_packed(t5p, ks_table, scramb_idx, tsel):
+    """SB1/NDB/SCH-F rows at full width (the split decode's CCH program):
+    (B, 54) packed rows, every variant padded to 288 trellis steps;
+    (B, 35) output."""
+    type4 = _unpack_rows(t5p, _MIX_T345) ^ _ks_from_table(ks_table,
+                                                          scramb_idx)
+    type1, ok = _decode_cch_core(type4, tsel)
+    pad = type1.new_zeros((type1.shape[0], _T1_BYTES * 8 - _MIX_T1))
+    return _pack_t1(torch.cat([type1, pad], dim=1), ok)
+
+
+# ---------------------------------------------------------------------------
+# Chunked dispatch of the packed programs
+# ---------------------------------------------------------------------------
+
+_COPY_STREAMS: dict = {}
+
+
+def _chunks(rows: np.ndarray, bucket: int) -> list:
+    """rows in chunks of `bucket` (0: one chunk)."""
+    step = bucket or max(1, len(rows))
+    return [rows[s:s + step] for s in range(0, len(rows), step)]
+
+
+class _Dispatch:
+    """One batch's chunked programs on `dev`: up() uploads a chunk's rows,
+    fetch() queues a chunk's result for the host, wait() returns after
+    every queued fetch has landed.  On CUDA an upload is a non-blocking
+    copy from pinned memory on the current stream, and each fetch a
+    non-blocking copy into pinned memory on this device's copy stream,
+    ordered after the work enqueued so far (its own chunk's program, not
+    the next one's), so chunk j's fetch overlaps chunk j+1's trellis; wait()
+    is the batch's one synchronize.  On the CPU both are the tensors
+    themselves."""
+
+    def __init__(self, dev: torch.device):
+        self.dev = dev
+        self.copy = None
+        if dev.type == "cuda":
+            if dev not in _COPY_STREAMS:
+                _COPY_STREAMS[dev] = torch.cuda.Stream(dev)
+            self.copy = _COPY_STREAMS[dev]
+
+    def up(self, a: np.ndarray) -> torch.Tensor:
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        if self.copy is None:
+            return t
+        return t.pin_memory().to(self.dev, non_blocking=True)
+
+    def fetch(self, res: torch.Tensor) -> torch.Tensor:
+        if self.copy is None:
+            return res
+        host = torch.empty(res.shape, dtype=res.dtype, pin_memory=True)
+        self.copy.wait_stream(torch.cuda.current_stream(self.dev))
+        with torch.cuda.stream(self.copy):
+            host.copy_(res, non_blocking=True)
+        # the copy stream still reads res after the caller drops it
+        res.record_stream(self.copy)
+        return host
+
+    def wait(self) -> None:
+        if self.copy is not None:
+            self.copy.synchronize()
+
+
+def _packed_rows(blk_types, scramb_idx):
+    """Variant ids and keystream slots per row (SB1 rows: slot 0)."""
     tsel = _MIX_TSEL_OF[np.asarray(blk_types, np.int64)]
     if (tsel < 0).any():
         raise ValueError("row type outside the mixed decode's variant table")
     idx = np.where(np.asarray(blk_types) == P.TPSAP_T_SB1, 0,
                    np.asarray(scramb_idx)).astype(np.int64)
-    dev = ks_table.device
-    to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    return tsel, idx
+
+
+def decode_rows_typed_packed(t5p: np.ndarray, blk_types: np.ndarray,
+                             scramb_idx: np.ndarray, ks_table: torch.Tensor,
+                             short_bucket: int = 0, schf_bucket: int = 0,
+                             bbk_bucket: int = 0
+                             ) -> tuple[np.ndarray, np.ndarray]:
+    """Packed decode by row type on ks_table's device: t5p (N, 54) packed
+    type-5 rows, scramb_idx (N,) slots of the (16, 432) keystream table
+    (slot 0 = SCRAMB_INIT; SB1 rows are forced to it).  SB1/SB2/NDB rows
+    upload 27 bytes and fetch 17, SCH-F rows 54 and 35, BBK rows 4 and 35,
+    each kind in chunks of its bucket (0: one chunk), every chunk enqueued
+    before any is fetched.  Returns (packed type1 (N, 34) uint8, ok (N,)
+    bool) in input row order."""
+    N = len(blk_types)
+    tsel, idx = _packed_rows(blk_types, scramb_idx)
+    d = _Dispatch(ks_table.device)
     out = np.zeros((N, _T1_BYTES + 1), np.uint8)
+    pend = []
     si = np.nonzero((tsel == _MIX_SB1) | (tsel == _MIX_NDB))[0]
-    fi = np.nonzero(tsel == _MIX_SCHF)[0]
-    bi = np.nonzero(tsel == _MIX_BBK)[0]
-    if len(si):
-        r = _decode_short_packed(to(t5p[si, :_SHORT_T5_BYTES]), ks_table,
-                                 to(idx[si]), to(tsel[si])).cpu().numpy()
-        out[si, :_SHORT_T1_BYTES] = r[:, :_SHORT_T1_BYTES]
-        out[si, _T1_BYTES] = r[:, _SHORT_T1_BYTES]
-    if len(fi):
-        out[fi] = _decode_schf_packed(to(t5p[fi]), ks_table,
-                                      to(idx[fi])).cpu().numpy()
-    if len(bi):
-        out[bi] = _decode_bbk_packed(to(t5p[bi, :4]), ks_table,
-                                     to(idx[bi])).cpu().numpy()
+    for rows in _chunks(si, short_bucket):
+        pend.append((rows, True, d.fetch(_decode_short_packed(
+            d.up(t5p[rows, :_SHORT_T5_BYTES]), ks_table, d.up(idx[rows]),
+            d.up(tsel[rows])))))
+    for rows in _chunks(np.nonzero(tsel == _MIX_SCHF)[0], schf_bucket):
+        pend.append((rows, False, d.fetch(_decode_schf_packed(
+            d.up(t5p[rows]), ks_table, d.up(idx[rows])))))
+    for rows in _chunks(np.nonzero(tsel == _MIX_BBK)[0], bbk_bucket):
+        pend.append((rows, False, d.fetch(_decode_bbk_packed(
+            d.up(t5p[rows, :4]), ks_table, d.up(idx[rows])))))
+    d.wait()
+    for rows, short, r in pend:
+        r = r.numpy()
+        if short:
+            out[rows, :_SHORT_T1_BYTES] = r[:, :_SHORT_T1_BYTES]
+            out[rows, _T1_BYTES] = r[:, _SHORT_T1_BYTES]
+        else:
+            out[rows] = r
+    return out[:, :_T1_BYTES], out[:, _T1_BYTES].astype(bool)
+
+
+def decode_rows_split_packed(t5p: np.ndarray, blk_types: np.ndarray,
+                             scramb_idx: np.ndarray, ks_table: torch.Tensor,
+                             cch_bucket: int = 0, bbk_bucket: int = 0
+                             ) -> tuple[np.ndarray, np.ndarray]:
+    """Packed decode split by kind (FleetEngine(split_fec=True)): the
+    SB1/SB2/NDB/SCH-F rows through the full-width CCH program (288 trellis
+    steps each), the BBK rows through RM(30,14), each kind in chunks of its
+    bucket (0: one chunk), every chunk enqueued before any is fetched.
+    Arguments and result as decode_rows_typed_packed's."""
+    N = len(blk_types)
+    tsel, idx = _packed_rows(blk_types, scramb_idx)
+    d = _Dispatch(ks_table.device)
+    out = np.empty((N, _T1_BYTES + 1), np.uint8)
+    pend = []
+    is_bbk = tsel == _MIX_BBK
+    for rows in _chunks(np.nonzero(~is_bbk)[0], cch_bucket):
+        pend.append((rows, d.fetch(_decode_cch_packed(
+            d.up(t5p[rows]), ks_table, d.up(idx[rows]),
+            d.up(tsel[rows])))))
+    for rows in _chunks(np.nonzero(is_bbk)[0], bbk_bucket):
+        pend.append((rows, d.fetch(_decode_bbk_packed(
+            d.up(t5p[rows, :4]), ks_table, d.up(idx[rows])))))
+    d.wait()
+    for rows, r in pend:
+        out[rows] = r.numpy()
+    return out[:, :_T1_BYTES], out[:, _T1_BYTES].astype(bool)
+
+
+def decode_rows_mixed_packed(t5p: np.ndarray, blk_types: np.ndarray,
+                             scramb_idx: np.ndarray, ks_table: torch.Tensor,
+                             min_bucket: int = 0
+                             ) -> tuple[np.ndarray, np.ndarray]:
+    """Every row through the one mixed program (FleetEngine(
+    typed_fec=False)), in chunks of min_bucket rows (0: one chunk), every
+    chunk enqueued before any is fetched.  Arguments and result as
+    decode_rows_typed_packed's."""
+    N = len(blk_types)
+    tsel, idx = _packed_rows(blk_types, scramb_idx)
+    d = _Dispatch(ks_table.device)
+    out = np.empty((N, _T1_BYTES + 1), np.uint8)
+    pend = [(rows, d.fetch(_decode_mixed_packed(
+        d.up(t5p[rows]), ks_table, d.up(idx[rows]), d.up(tsel[rows]))))
+        for rows in _chunks(np.arange(N), min_bucket)]
+    d.wait()
+    for rows, r in pend:
+        out[rows] = r.numpy()
     return out[:, :_T1_BYTES], out[:, _T1_BYTES].astype(bool)

@@ -5,13 +5,15 @@ Per cycle, Python makes two ctypes calls plus one FEC pass, independent of
 the channel count:
 
     fleet_feed / fleet_feed_sb (C++)  demod symbols -> burst sync -> type-5 rows
-    decode_rows_typed_packed (torch)  all rows' FEC on the engine's device
+    decode_rows_*_packed (torch)      all rows' FEC on the engine's device
     fleet_dispatch (C++)              decoded rows -> per-channel MAC/display
 
 The C++ engine is the reference's own source (tetra_tpu/rx/native/
 fleet.cpp), compiled with g++ into this package's build directory; its
-channel state struct is mirrored below.  The port always behaves as the
-reference's "pcie" link profile: worker threads on all cores, typed FEC.
+channel state struct is mirrored below.  The engine takes the reference's
+FEC choices (typed, split or mixed), bucket sizes, worker threads and
+link profile ("tunnel" or "pcie"); the buckets are chunk sizes here
+(rx/fec).
 """
 
 from __future__ import annotations
@@ -119,12 +121,64 @@ class FleetEngine:
     runs on `device` (the current CUDA device unless the caller asks for
     the CPU)."""
 
-    def __init__(self, channels: int, device=None, voice_cb=None):
+    def __init__(self, channels: int, device=None, voice_cb=None,
+                 pad_rows: int = 0, cch_bucket: int = 0, bbk_bucket: int = 0,
+                 split_fec: bool = False, typed_fec: bool = True,
+                 short_bucket: int = 0, schf_bucket: int = 0,
+                 threads: int | None = None, link_profile: str = "tunnel"):
+        """The reference's signature, with device second (as the port's
+        callers pass it).
+
+        threads: worker threads of the native per-channel loops (channels
+        are independent; ctypes releases the GIL).  None reads
+        TETRA_FLEET_THREADS; 0 picks by link profile: "tunnel" cores-1
+        (one core stays with the caller's device loop), "pcie" all cores;
+        1 is sequential.  Results do not depend on it.
+
+        FEC program, by precedence split > typed > mixed: split_fec=True
+        decodes CCH vs BBK rows at full width
+        (rx/fec.decode_rows_split_packed); typed_fec=True, the default, by
+        row type (decode_rows_typed_packed); else every row in the one
+        mixed program (decode_rows_mixed_packed, chunked by pad_rows).  The
+        buckets are those programs' chunk sizes; zero ones default as in
+        the reference, from pad_rows and the link profile: "tunnel" keeps
+        a steady batch in one chunk, "pcie" halves the typed buckets so it
+        runs as two, and chunk j's fetch overlaps chunk j+1's trellis."""
+        if link_profile not in ("tunnel", "pcie"):
+            raise ValueError(f"link_profile={link_profile!r}: 'tunnel' or "
+                             f"'pcie'")
         lib = load()
         self.lib = lib
         self.channels = channels
         self.device = resolve_device(device)
         self.voice_cb = voice_cb
+        self.link_profile = link_profile
+        if threads is None:
+            threads = int(os.environ.get("TETRA_FLEET_THREADS", "0"))
+        if threads == 0:
+            cores = os.cpu_count() or 2
+            threads = cores if link_profile == "pcie" else max(1, cores - 1)
+        self.threads = threads
+        self.pad_rows = pad_rows
+        self.split_fec = split_fec
+        self.typed_fec = typed_fec and not split_fec
+        if split_fec:
+            cch_bucket = cch_bucket or pad_rows or 1024
+            bbk_bucket = bbk_bucket or max(512, pad_rows // 4)
+        self.cch_bucket = cch_bucket
+        self.bbk_bucket = bbk_bucket
+        if self.typed_fec:
+            # short rows are <= 2 a slot, SCH-F rows <= 1
+            if link_profile == "pcie":
+                short_bucket = short_bucket or max(256, (pad_rows or 1024)
+                                                   // 2)
+                schf_bucket = schf_bucket or max(128, (pad_rows or 1024)
+                                                 // 4)
+            else:
+                short_bucket = short_bucket or pad_rows or 1024
+                schf_bucket = schf_bucket or max(512, pad_rows // 2)
+        self.short_bucket = short_bucket
+        self.schf_bucket = schf_bucket
         y = np.ascontiguousarray(P.TRAIN_Y, np.uint8)
         n = np.ascontiguousarray(P.TRAIN_N, np.uint8)
         p = np.ascontiguousarray(P.TRAIN_P, np.uint8)
@@ -137,7 +191,8 @@ class FleetEngine:
         for t in P.SCRAMB_TAPS:
             tapmask |= 1 << (32 - t)
         lib.fleet_set_rm(self.h, parity.ctypes.data, tapmask)
-        lib.fleet_set_threads(self.h, os.cpu_count() or 2)
+        if threads != 1:
+            lib.fleet_set_threads(self.h, threads)
         self.scramb = np.ctypeslib.as_array(
             ctypes.cast(lib.fleet_scramb_ptr(self.h),
                         ctypes.POINTER(ctypes.c_int64)), (channels,))
@@ -241,14 +296,28 @@ class FleetEngine:
         return self._decode_dispatch(n, K)
 
     def _decode(self, rows_t5p, rows_types, rows_scrambs):
+        """One FEC pass over rows by the engine's program (split > typed >
+        mixed), as the reference's decode()."""
         idx, ok = self._ks_cycle_map(rows_scrambs)
         if ok:
-            return rx_fec.decode_rows_typed_packed(rows_t5p, rows_types, idx,
-                                                   self._ks_dev)
+            if self.split_fec:
+                return rx_fec.decode_rows_split_packed(
+                    rows_t5p, rows_types, idx, self._ks_dev,
+                    cch_bucket=self.cch_bucket, bbk_bucket=self.bbk_bucket)
+            if self.typed_fec:
+                return rx_fec.decode_rows_typed_packed(
+                    rows_t5p, rows_types, idx, self._ks_dev,
+                    short_bucket=self.short_bucket,
+                    schf_bucket=self.schf_bucket,
+                    bbk_bucket=self.bbk_bucket or 512)
+            return rx_fec.decode_rows_mixed_packed(
+                rows_t5p, rows_types, idx, self._ks_dev,
+                min_bucket=self.pad_rows)
         # > 15 distinct cells in one cycle: unpacked mixed decode
         t5u = np.unpackbits(rows_t5p, axis=1)[:, :432]
         t1u, oku = rx_fec.decode_rows_mixed(t5u, rows_types, rows_scrambs,
-                                            self.device)
+                                            self.device,
+                                            min_bucket=self.pad_rows)
         t1pad = np.concatenate(
             [t1u, np.zeros((len(t1u), _T1P_BYTES * 8 - t1u.shape[1]),
                            np.uint8)], axis=1)
@@ -375,6 +444,9 @@ class FleetEngine:
 
     # -- views ---------------------------------------------------------------
 
+    def chan(self, c: int) -> FleetChanStruct:
+        return self._chans[c]
+
     def display(self, c: int) -> DisplayState:
         d = self._chans[c].disp
         return DisplayState(
@@ -396,3 +468,10 @@ class FleetEngine:
     def crc_counts(self, c: int) -> tuple[int, int]:
         ch = self._chans[c]
         return int(ch.crc_oks), int(ch.crc_fails)
+
+    def phy_time(self, c: int) -> TdmaTime:
+        t = self._chans[c].time
+        return TdmaTime(t.hn, t.mn, t.fn, t.tn, t.sn)
+
+    def lock_losses(self, c: int) -> int:
+        return int(self._chans[c].lock_losses)

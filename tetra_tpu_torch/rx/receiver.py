@@ -5,7 +5,10 @@ Ported, each wideband (wideband=N: front end K3 per cycle) or narrowband
 
 - the fleet receiver (fleet=True): K cycles per superblock packed into
   the fleet-feed words, native burst sync + MAC around one batched FEC
-  pass (rx/fleet.FleetEngine);
+  pass (rx/fleet.FleetEngine); with wb_pipeline (link_profile="pcie")
+  superblock s+1 runs on the device while the host decodes superblock s
+  (on CUDA: on a side stream of the receiver, fetched into pinned
+  buffers);
 - the per-channel receiver (the default): K2 in its full form each
   cycle, then per channel host burst sync (rx/burst_sync.BurstSync, with
   the batched SYNC acquisition on the device while channels are
@@ -149,13 +152,21 @@ class TetraReceiver:
         correlation on the device (burst_sync.device_acquire_scan); on by
         default from 64 channels.
 
-        link_profile: "tunnel" or "pcie".  The reference's two profiles
-        differ only in its fleet engine's host thread count and FEC
-        chunking (tetra_tpu/rx/fleet.py:173-225); the port decodes the
-        same under both (its fleet engine uses every core and decodes
-        each cycle's rows in one pass).  wb_pipeline: None and False are
-        no-ops (the reference pipelines fleet superblocks only); True in
-        fleet mode is not ported (ROADMAP "Not ported").
+        link_profile: "tunnel" (default) or "pcie", the reference's one
+        switch for a locally attached card: "pcie" turns wb_pipeline on
+        and builds the fleet engine with the pcie profile (halved typed
+        FEC chunks, worker threads on every core; rx/fleet.FleetEngine).
+        An explicit wb_pipeline= overrides the profile's default.
+
+        wb_pipeline: fleet superblocks double-buffered when wb_k > 1:
+        superblock s+1 is enqueued on the device before superblock s is
+        fetched and decoded on the host.  On CUDA the superblock step runs
+        on the receiver's side stream (after the caller's current stream)
+        and its output is copied non-blocking into one of two pinned host
+        buffers; on the CPU it is the same one-superblock deferral.  Until
+        flush_wideband(), the decode state (display, crc_counts, locks,
+        sym_quality, voice callbacks) lags one superblock behind the
+        demod state.
 
         mac_workers: > 0 shards the host MAC dispatch over that many CPU
         worker processes (rx/hostpool.MacPool); the FEC stays batched on
@@ -198,11 +209,9 @@ class TetraReceiver:
         if link_profile not in ("tunnel", "pcie"):
             raise ValueError(f"link_profile={link_profile!r}: 'tunnel' or "
                              f"'pcie'")
-        if fleet and wb_pipeline:
-            raise NotImplementedError(
-                "wb_pipeline=True: superblock pipelining is not ported "
-                "(ROADMAP \"Not ported\")")
         self.link_profile = link_profile
+        if wb_pipeline is None:
+            wb_pipeline = link_profile == "pcie"
         self.device = resolve_device(device)
         if wideband:
             channels = wideband
@@ -212,10 +221,27 @@ class TetraReceiver:
         self.sym_quality = np.zeros(channels, np.float32)
         self.wideband = wideband
         self.wb_k = max(1, wb_k)
+        self.wb_pipeline = bool(wb_pipeline) and self.wb_k > 1
+        self._wb_pending = None
+        self._side = None           # the pipelined step's CUDA stream
+        self._host_bufs = []        # its two pinned output buffers
         self._const = None
         self.pool = None
         if fleet:
-            self.fleet = FleetEngine(channels, self.device, voice_cb=voice_cb)
+            # FEC chunk size: a wideband superblock's worst steady row
+            # count (every burst type sends <= 2 rows a slot to the FEC,
+            # plus 10%), else the reference's narrowband formula
+            if wideband and channels >= 64:
+                slots = (t50 * 18 // 25) / 510.0
+                pad_rows = -(-int(channels * self.wb_k * slots * 2.2)
+                             // 1024) * 1024
+            else:
+                pad_rows = 1 << max(5, (channels * 28 * self.wb_k
+                                        - 1).bit_length()) \
+                    if channels >= 64 else 0
+            self.fleet = FleetEngine(channels, self.device, voice_cb=voice_cb,
+                                     pad_rows=pad_rows,
+                                     link_profile=link_profile)
             self.mac = []
         else:
             self.fleet = None
@@ -353,21 +379,84 @@ class TetraReceiver:
 
     def _superblock(self, wr, wi, i16: bool) -> None:
         wb = self._wb
-        (self.state, fused, wb["hist_r"], wb["hist_i"]) = _wideband_step_scan(
+        step = lambda: _wideband_step_scan(
             self.state, wr, wi, wb["hist_r"], wb["hist_i"], self.wideband,
             wb["t36"], wb["n_chunks"], i16, self.wb_k)
-        fused = fused.cpu().numpy()
+        if not (self.wb_pipeline and self.device.type == "cuda"):
+            self.state, fused, wb["hist_r"], wb["hist_i"] = step()
+            self._consume_fused(fused)
+            return
+        if self._side is None:
+            self._side = torch.cuda.Stream(self.device)
+        side = self._side
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        # inputs made on the caller's stream are read on the side stream:
+        # their memory must not be reused before it is done with them
+        for t in (wr, wi, wb["hist_r"], wb["hist_i"], *self.state):
+            t.record_stream(side)
+        with torch.cuda.stream(side):
+            self.state, fused, wb["hist_r"], wb["hist_i"] = step()
+            if not self._host_bufs:
+                self._host_bufs = [torch.empty(fused.shape, dtype=fused.dtype,
+                                               pin_memory=True)
+                                   for _ in range(2)]
+            # the buffer of superblock s-2, consumed before this call
+            buf = self._host_bufs[0]
+            self._host_bufs.reverse()
+            buf.copy_(fused, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(side)
+        self._consume_fused((buf, done))
+
+    def _consume_fused(self, fused) -> None:
+        """Hand a superblock's output to the bit pipeline: at once, or,
+        with wb_pipeline, after the next superblock has been enqueued
+        (the previous pending one is decoded now)."""
+        if not self.wb_pipeline:
+            self._post_demod_fused(self._fused_host(fused))
+            return
+        prev, self._wb_pending = self._wb_pending, fused
+        if prev is not None:
+            self._post_demod_fused(self._fused_host(prev))
+
+    @staticmethod
+    def _fused_host(fused) -> np.ndarray:
+        """A superblock's output on the host: a device tensor is fetched;
+        a (pinned buffer, event) pair waits for its copy, which raises
+        here if the side stream's work failed."""
+        if isinstance(fused, tuple):
+            buf, done = fused
+            done.synchronize()
+            return buf.numpy()
+        return fused.cpu().numpy()
+
+    def _post_demod_fused(self, fused: np.ndarray) -> None:
+        """Superblock output, (K*G + 2, C) int32 in the pack_cycle_tc
+        layout; the last two rows carry the float32 bits of the per-channel
+        valid count and dist sum."""
         vcount = fused[-2].view(np.float32)
         dsum = fused[-1].view(np.float32)
         nz = vcount > 0
         if nz.any():
             self.sym_quality[nz] = (dsum[nz] / vcount[nz]).astype(np.float32)
         self._const = None
-        self.fleet.process_packed2(fused[:-2], self.wb_k, wb["n_chunks"])
+        self.fleet.process_packed2(fused[:-2], self.wb_k,
+                                   self._wb["n_chunks"])
 
     def flush_wideband(self) -> None:
-        """Nothing is deferred: every superblock is decoded when it is fed
-        (kept so reference callers run unchanged)."""
+        """Decode the superblock the pipelined path holds back (call
+        before reading the final state, or at the end of the stream);
+        idempotent, and a no-op without wb_pipeline."""
+        pending, self._wb_pending = self._wb_pending, None
+        if pending is not None:
+            self._post_demod_fused(self._fused_host(pending))
+        self._sync_side()
+
+    def _sync_side(self) -> None:
+        """Wait for the side stream, which writes the demod state and the
+        resampler history of the pipelined path."""
+        if self._side is not None:
+            self._side.synchronize()
 
     def _fetch(self, outs):
         """The block's dibits (uint8), valid (bool) and dist (float32),
@@ -472,7 +561,13 @@ class TetraReceiver:
         channel, the burst sync (lock, bit buffer, TDMA time) and the cell
         (scrambling, CRC tallies), then the wideband stream continuity.
         Event logs and fragment slots are transient and not saved, as in
-        the reference, which does not checkpoint the MAC pool either."""
+        the reference, which does not checkpoint the MAC pool either.
+        With wb_pipeline a pending superblock is not flushed, as in the
+        reference: its bits are in neither the saved demod state (already
+        past them) nor the fleet blob (not yet fed them), so a receiver
+        restored from it misses that superblock (call flush_wideband()
+        first to keep it)."""
+        self._sync_side()
         if self.pool is not None:
             raise NotImplementedError("checkpointing unsupported in "
                                       "mac_workers pool mode")
@@ -505,6 +600,7 @@ class TetraReceiver:
         if self.pool is not None:
             raise NotImplementedError("checkpointing unsupported in "
                                       "mac_workers pool mode")
+        self._sync_side()
         z = np.load(path)
         if (self.fleet is not None) != ("fleet_blob" in z.files):
             raise ValueError("checkpoint and receiver differ in fleet mode")
