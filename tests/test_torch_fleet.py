@@ -255,6 +255,62 @@ def test_fleet_threads_bitexact_and_accessors_match_jax():
         assert seq.phy_time(c).mn > 0
 
 
+def _shrink_rowbufs(engine, rows: int) -> None:
+    """Give the engine a row buffer of `rows` rows, whatever its feed asks
+    for (both packages' engines keep it in _cap, _t5 and _meta)."""
+    width = {"_t5": (54, np.uint8), "_meta": (12, np.int64)}
+
+    def ensure(K, T):
+        engine._cap = rows
+        for name, (cols, dtype) in width.items():
+            setattr(engine, name, np.empty((rows, cols), dtype))
+    engine._ensure_rowbufs = ensure
+
+
+@pytest.mark.parametrize("entry", ["cycles", "superblock"])
+def test_row_capacity_overflow_raises_as_in_jax(voice_feed, entry):
+    """rx/fleet.py:339 and :363 of the reference: a feed that emits more
+    rows than the engine's buffer holds (the native feed returns one row
+    more than the buffer, fleet.cpp emit_block) stops before those rows
+    are decoded or the next feed is given a negative capacity.  The
+    reference asserts; the port raises RuntimeError.  Both engines get a
+    4-row buffer and 3 cycles of 3 locked channels, through
+    process_packed_cycles or process_packed2."""
+    K, n_chunks = 3, 75
+    T = n_chunks * 32
+    cycles = np.stack([voice_feed[:, j * T:(j + 1) * T] for j in range(K)])
+    words = _pack_words(voice_feed[:, :K * T] & 3,
+                        np.ones((3, K * T), bool), K, n_chunks)
+    feed = {"cycles": lambda f: f.process_packed_cycles(cycles),
+            "superblock": lambda f: f.process_packed2(words, K, n_chunks)}
+    for engine, err in ((FleetEngine(3, "cpu"), RuntimeError),
+                        (JaxEngine(3), AssertionError)):
+        _shrink_rowbufs(engine, 4)
+        with pytest.raises(err, match="capacity overflow"):
+            feed[entry](engine)
+    # the same feeds fit the buffer the engine sizes itself
+    whole = FleetEngine(3, "cpu")
+    assert feed[entry](whole) > 4
+
+
+@pytest.mark.parametrize("what", ["engine", "receiver"])
+def test_no_native_mac_switch_stops_the_fleet_as_in_jax(monkeypatch, what):
+    """TETRA_NO_NATIVE_MAC disables the native MAC, and with it the
+    native-only fleet path: in both packages FleetEngine, and so a fleet
+    receiver, raises RuntimeError (reference rx/fleet.py:86-87,
+    :166-169), where the per-channel receiver runs on."""
+    monkeypatch.setenv("TETRA_NO_NATIVE_MAC", "1")
+    make = {"engine": (lambda: FleetEngine(8, "cpu"), lambda: JaxEngine(8)),
+            "receiver": (
+                lambda: TetraReceiver(wideband=8, fleet=True, device="cpu"),
+                lambda: JaxReceiver(wideband=8, fleet=True, events=False))}
+    for build in make[what]:
+        with pytest.raises(RuntimeError, match="native fleet engine "
+                           "unavailable"):
+            build()
+    assert TetraReceiver(wideband=8, device="cpu").fleet is None
+
+
 @pytest.mark.parametrize("profile", ["tunnel", "pcie"])
 @pytest.mark.parametrize("wideband, t50, wb_k", [(8, 6400, 2), (64, 1600, 4),
                                                  (0, 6400, 1)])

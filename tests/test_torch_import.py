@@ -57,7 +57,8 @@ def test_port_covers_the_slice_layout():
               "voice.audio_out", "core.loops", "rx.demod_ff",
               "tx.modulator", "tx.channel", "tx.modulator2",
               "runtime.iq_stream", "apps.tetra_rx", "apps.tetra_tx",
-              "rx.hostpool", "parallel.mesh", "apps.multihost"):
+              "rx.hostpool", "parallel.mesh", "apps.multihost",
+              "rx.parity"):
         assert "tetra_tpu_torch." + m in mods, m
 
 
@@ -143,6 +144,16 @@ rx.flush_wideband()
 assert any(rx.locked(c) for c in range(8))
 assert rx.fleet.chan(0).state == 2 or not rx.locked(0)
 assert rx.fleet.lock_losses(0) >= 0 and rx.fleet.phy_time(0).tn >= 0
+# slice_marginal's fleet-vs-per-channel step at 8 carriers: marginal air
+# (7.5-12 dB, carrier 7 drops out and comes back as another cell) through
+# a superblock fleet, a one-cycle fleet and the per-channel receiver
+from tests.torch_parity import assert_wide_parity, wide_receivers
+from tetra_tpu_torch.tx.wideband import marginal_air
+air, plan = marginal_air(8, 1.8, dropout_at=0.6, seed=5, device='cpu')
+assert plan['handover'].sum() == 1 and air.dtype.name == 'complex64'
+rx_k, rx_1, rx_p, fed = wide_receivers(air, 8, 1600, 2)
+assert_wide_parity(rx_k, rx_1, rx_p)
+assert len(fed) > 0.9 * len(air)
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'tetra_tpu'))
 assert not bad, bad
@@ -157,8 +168,10 @@ def test_runs_without_jax_or_tetra_tpu():
     tetra_tpu_torch/, a BurstSync + LowerMac decode of a cell runs, and so
     do a speech slot's decode and synthesis, a TEA1 keystream, one block
     each of the ff and exact demod chains, the fleet's typed, split and
-    mixed packed FEC decodes in chunks, and a pipelined pcie fleet
-    receiver over 1.2 s of air."""
+    mixed packed FEC decodes in chunks, a pipelined pcie fleet
+    receiver over 1.2 s of air, and chip_smoke.py slice_marginal's
+    fleet-vs-per-channel parity step (tests/torch_parity.py) on 1.8 s of
+    tx.wideband.marginal_air at 8 carriers."""
     mods = _modules() + ["chip_smoke"]
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = ROOT

@@ -18,6 +18,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 from tetra_tpu.rx import demod_fast as JDF
 from tetra_tpu.rx.receiver import TetraReceiver as JaxReceiver
@@ -68,6 +69,42 @@ def test_channel_checkpoint_restores_across_packages(wide, tmp_path, writer):
     np.testing.assert_array_equal(same.sym_quality, a.sym_quality)
     assert_same_decode(cross, a, N)
     assert all(cross.locked(c) for c in range(N))
+
+
+def test_cs16_channel_checkpoint_resumes_as_uninterrupted(wide, tmp_path):
+    """A per-channel receiver fed cs16 and checkpointed with samples in its
+    wideband buffer resumes in the port to the same locks, lock losses,
+    CRC tallies, display, sym_quality and demod state as the receiver
+    that ran on.  The reference casts the buffer to complex64 on restore,
+    so its next cs16 feed raises (the port's deliberate difference,
+    load_state's docstring)."""
+    q = np.round(wide * (32767 / np.abs(wide).max()))
+    cs16 = np.stack([q.real, q.imag], axis=1).reshape(-1).astype(np.int16)
+    a = make_port()
+    cut = 2 * (6 * a._wb["advance"] + 12345)      # whole I/Q pairs
+    feed(a, cs16[:cut])
+    assert a._wb["buf"].dtype == np.int16 and len(a._wb["buf"]) > 0
+    path = os.path.join(tmp_path, "cs16.npz")
+    a.save_state(path)
+    b = make_port()
+    b.load_state(path)
+    assert b._wb["buf"].dtype == np.int16
+    np.testing.assert_array_equal(b._wb["buf"], a._wb["buf"])
+    for rx in (a, b):
+        feed(rx, cs16[cut:])
+    for c in range(N):
+        assert b.locked(c) == a.locked(c) and a.locked(c), c
+        assert b.sync[c].lock_losses == a.sync[c].lock_losses, c
+        assert b.crc_counts(c) == a.crc_counts(c), c
+        assert b.display(c).as_dict() == a.display(c).as_dict(), c
+    np.testing.assert_array_equal(b.sym_quality, a.sym_quality)
+    for k, v in a.state._asdict().items():
+        assert torch.equal(getattr(b.state, k), v), k
+    j = make_jax()
+    j.load_state(path)
+    assert j._wb["buf"].dtype == np.complex64
+    with pytest.raises(AssertionError, match="cannot mix cs16 and cf32"):
+        j.process_wideband(cs16[cut:cut + 4096])
 
 
 def test_fleet_and_channel_checkpoints_do_not_mix(wide, tmp_path):

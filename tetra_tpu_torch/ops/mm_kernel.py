@@ -67,10 +67,13 @@ def _host_polys() -> np.ndarray:
 
 
 def mm_costas_plain(mfr, mfi, st0, n_chunks: int, emit_syms: bool = True,
-                    tail_re=None, tail_im=None, cfreq_trace=None):
+                    tail_re=None, tail_im=None, cfreq_trace=None,
+                    f0_trace=None):
     """Plain PyTorch K2 (see the module docstring for the layout).  A list
     given as cfreq_trace receives each group's Costas frequency (C,) as
-    the group's leak decision reads it."""
+    the group's leak decision reads it; one given as f0_trace each group's
+    interpolated samples before the Costas rotation, a (G, C) pair, as
+    the timing error's sgn() reads them."""
     T, C = mfr.shape
     er = torch.cat([tail_re, mfr], dim=0)          # (T + 7, C)
     ei = torch.cat([tail_im, mfi], dim=0)
@@ -109,6 +112,8 @@ def mm_costas_plain(mfr, mfi, st0, n_chunks: int, emit_syms: bool = True,
             f0i = f0i + cb * xi
             d_r = d_r + cd * xr
             d_i = d_i + cd * xi
+        if f0_trace is not None:
+            f0_trace.append((f0r, f0i))
         zero = torch.zeros_like(p)
         err = torch.clamp(sgn(f0r) * d_r + sgn(f0i) * d_i, -4.0, 4.0)
         err = torch.where(valid, err, zero)

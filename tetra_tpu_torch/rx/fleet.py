@@ -83,8 +83,12 @@ class FleetChanStruct(ctypes.Structure):
 
 def load():
     """Build (on first use, ops._build.host_library) and load the native
-    fleet library."""
+    fleet library; None when TETRA_NO_NATIVE_MAC is set (the fleet path is
+    native only, so disabling the native MAC disables it too, as in the
+    reference).  A failed build raises."""
     global _lib
+    if os.environ.get("TETRA_NO_NATIVE_MAC"):
+        return None
     with _lock:
         if _lib is not None:
             return _lib
@@ -148,6 +152,9 @@ class FleetEngine:
             raise ValueError(f"link_profile={link_profile!r}: 'tunnel' or "
                              f"'pcie'")
         lib = load()
+        if lib is None:
+            raise RuntimeError("native fleet engine unavailable "
+                               "(TETRA_NO_NATIVE_MAC is set)")
         self.lib = lib
         self.channels = channels
         self.device = resolve_device(device)
@@ -275,6 +282,7 @@ class FleetEngine:
                 self.h, pj.ctypes.data, T,
                 self._t5[n:].ctypes.data, self._meta[n:].ctypes.data,
                 self._cap - n)
+            self._check_rows(n)
         return self._decode_dispatch(n, K)
 
     def process_packed2(self, words: np.ndarray, K: int,
@@ -293,7 +301,16 @@ class FleetEngine:
         n = int(self.lib.fleet_feed_sb(
             self.h, words.ctypes.data, K, n_chunks,
             self._t5.ctypes.data, self._meta.ctypes.data, self._cap))
+        self._check_rows(n)
         return self._decode_dispatch(n, K)
+
+    def _check_rows(self, n: int) -> None:
+        """The native feed signals a full row buffer by returning more rows
+        than it holds (fleet.cpp emit_block); raise before those rows are
+        read or the next feed is given a negative capacity."""
+        if n > self._cap:
+            raise RuntimeError(f"fleet_feed capacity overflow: {n} rows for "
+                               f"a buffer of {self._cap}")
 
     def _decode(self, rows_t5p, rows_types, rows_scrambs):
         """One FEC pass over rows by the engine's program (split > typed >

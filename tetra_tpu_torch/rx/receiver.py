@@ -596,6 +596,14 @@ class TetraReceiver:
         np.savez(path, **data)
 
     def load_state(self, path: str) -> None:
+        """Restore a save_state checkpoint of either package (the same npz
+        keys).  The wideband buffer keeps its dtype in both modes: a
+        receiver fed cs16 resumes on cs16 with the int16 samples it held.
+        This differs from the reference on purpose: its per-channel
+        load_state casts the buffer to complex64, so the next cs16 feed
+        trips its "cannot mix cs16 and cf32 feeds" assert whenever the
+        buffer was not empty (tetra_tpu/rx/receiver.py:680, :357-358), and
+        a crash is not a semantic worth copying."""
         from ..convert import hist_from_numpy, state_from_numpy
         if self.pool is not None:
             raise NotImplementedError("checkpointing unsupported in "

@@ -5,7 +5,8 @@ the benchmark's heterogeneous_fleet_iq (bench.py): same code, same seeds,
 same outputs; and the port of tetra_tpu/tx/wideband.assemble_wideband,
 whose resampler runs on a torch device.  The cell bit streams come from
 the port's own tx/cell.py; voice_cell_air adds traffic, slot stealing and
-TEA1 encryption to cell_air's multiplex.
+TEA1 encryption to cell_air's multiplex, and marginal_air puts carriers
+at marginal SNR, some with a dropout and a cell change.
 """
 
 from __future__ import annotations
@@ -81,29 +82,38 @@ def assemble_wideband(channels: dict[int, np.ndarray], n_ch: int,
                       amplitude: float = 1.0, device=None) -> np.ndarray:
     """channels: {channel_index: complex IQ at 36 kHz}.  Returns wideband
     complex64 at n_ch*25 kHz with each signal centered at k*25 kHz.  The
-    36 kHz -> n_ch*25 kHz resampling runs on `device` (the current CUDA
-    device unless the caller asks for the CPU), the mixing on the host."""
+    36 kHz -> n_ch*25 kHz resampling and the mixing run on `device` (the
+    current CUDA device unless the caller asks for the CPU), one channel
+    at a time into one complex64 sum there; each channel's mixer is
+    computed in float64, as in the reference, before the channel is
+    rounded to complex64 and added."""
     from math import gcd
 
-    from ..parallel.channelizer import resample
+    import torch
+
+    from .. import resolve_device
+    from ..parallel.channelizer import RS_TAPS_PER_PHASE, _resample_block
+    device = resolve_device(device)
     fs = n_ch * 25_000
     g = gcd(fs, 36_000)
     L, M = fs // g, 36_000 // g
-    length = None
-    up = {}
+    n_in = min(len(iq) for iq in channels.values())
+    length = (n_in - RS_TAPS_PER_PHASE) * L // M
+    t = torch.arange(length, dtype=torch.float64, device=device) / fs
+    wide = torch.zeros(length, dtype=torch.complex64, device=device)
     for k, iq in channels.items():
-        y = resample(np.asarray(iq)[None], L, M, device)[0]
-        up[k] = y
-        length = len(y) if length is None else min(length, len(y))
-    t = np.arange(length) / fs
-    wide = np.zeros(length, np.complex64)
-    for k, y in up.items():
+        iq = np.asarray(iq, np.complex64)[None, :n_in]
+        yr, yi = _resample_block(
+            torch.from_numpy(iq.real.copy()).to(device),
+            torch.from_numpy(iq.imag.copy()).to(device), n_in, L, M)
         f0 = k * 25_000.0
         if f0 > fs / 2:
             f0 -= fs
-        wide += (y[:length] * np.exp(2j * np.pi * f0 * t) * amplitude
-                 ).astype(np.complex64)
-    return wide
+        ang = (2j * np.pi * f0).imag * t
+        y = torch.complex(yr[0], yi[0]).to(torch.complex128)
+        wide += (y * torch.polar(torch.ones_like(ang), ang)
+                 * amplitude).to(torch.complex64)
+    return wide.cpu().numpy()
 
 
 def _largest_prime_factor(n: int) -> int:
@@ -219,6 +229,98 @@ def voice_cell_air(channels: int, seconds: float, n_cells: int = 8,
         streams.append(bits)
         records.append(recs)
     return _multiplex(streams, channels, seed), records
+
+
+def handover_cell(j: int) -> CellConfig:
+    """The cell that takes over handover carrier j of marginal_air: a new
+    MCC, MNC and colour code, so a new scrambling code."""
+    return CellConfig(mcc=901, mnc=40 + j, cc=10 + j)
+
+
+# marginal_air: the SNR sweep of the carriers that stay (dB per 25 kHz
+# channel), and every HANDOVER_EVERY-th carrier at HANDOVER_SNR_DB (the
+# level of the reference's handover stream, tests/test_fleet.py:98)
+# silent for DROPOUT_S before another cell takes over
+MARGINAL_SNR_DB = (7.5, 12.0)
+HANDOVER_EVERY = 8
+HANDOVER_SNR_DB = 25.0
+DROPOUT_S = 0.5
+
+
+def marginal_air(channels: int, seconds: float, dropout_at: float = 2.0,
+                 seed: int = 11, device=None):
+    """Carriers at marginal SNR, some dropping out and coming back as
+    another cell.  Carrier c carries cell c % 8 of cell_air (MCC 262, MNC
+    100 + i, CC 1 + i) at its own SNR and CFO (uniform in +-400 Hz), the
+    SNRs spread over MARGINAL_SNR_DB in a seeded order.  Every
+    HANDOVER_EVERY-th carrier (c % HANDOVER_EVERY == HANDOVER_EVERY - 1)
+    is at HANDOVER_SNR_DB, goes silent at dropout_at for DROPOUT_S, then
+    carries handover_cell(j) (j counts those carriers) on a TDMA timeline
+    of its own.
+
+    Each carrier is modulated at 36 kHz (tx.modulator), rotated by its CFO
+    and scaled to its level (tx.channel), mixed onto its carrier
+    (assemble_wideband), and the band gets one white noise floor
+    (tx.channel.add_awgn): a carrier's SNR is its power over the noise in
+    its 25 kHz channel, as synthesize_wideband sets it, and a carrier in
+    its dropout is the floor alone.  (Noise added per carrier at 36
+    kHz would overlap the neighbours' 25 kHz channels, unlike thermal
+    noise, and bias their band-edge FLLs.)  Everything after the bit
+    streams runs on `device` (the current CUDA device unless the caller
+    asks for the CPU); one seed gives one air on one device type.
+
+    Returns (wide, plan): wide complex64 at channels * 25 kHz, seconds
+    long; plan a dict of per-carrier arrays snr_db, cfo_hz, handover
+    (bool), cell (index of the first cell), new_cell (handover_cell
+    index, -1 elsewhere), and the dropout's start and end in seconds."""
+    import torch
+
+    from .. import resolve_device
+    from .channel import add_awgn, apply_cfo
+    from .modulator import modulate
+
+    device = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    fs36 = int(P.SAMPLE_RATE)
+    n36 = int(seconds * fs36)
+    drop0, drop1 = int(dropout_at * fs36), int((dropout_at + DROPOUT_S)
+                                               * fs36)
+    handover = np.arange(channels) % HANDOVER_EVERY == HANDOVER_EVERY - 1
+    snr = np.full(channels, HANDOVER_SNR_DB)
+    snr[~handover] = rng.permutation(np.linspace(*MARGINAL_SNR_DB,
+                                                 int((~handover).sum())))
+    cfo = rng.uniform(-400.0, 400.0, channels)
+    phase0 = rng.uniform(0.0, 2 * np.pi, channels)
+    new_cell = np.where(handover, np.cumsum(handover) - 1, -1)
+
+    def stream(cfg: CellConfig, n: int, start: TdmaTime) -> torch.Tensor:
+        bits, _ = downlink_bits(cfg, n // P.BITS_PER_TS + 2, start=start)
+        return modulate(bits[None], device=device)[0, :n]
+
+    first = [stream(_cell_config(i), n36, TdmaTime(mn=2, fn=14, tn=1))
+             for i in range(8)]
+    later = {j: stream(handover_cell(j), n36 - drop1,
+                       TdmaTime(mn=9, fn=17, tn=4))
+             for j in new_cell[handover]}
+    # the strongest carrier at unit power; the floor sets the others' SNR
+    top = float(snr.max())
+    gain = 10.0 ** ((snr - top) / 20.0) / float(
+        torch.mean(first[0].abs() ** 2)) ** 0.5
+    carriers = {}
+    for c in range(channels):
+        iq = first[c % 8]
+        if handover[c]:
+            iq = torch.cat([iq[:drop0], iq.new_zeros(drop1 - drop0),
+                            later[new_cell[c]]])
+        carriers[c] = apply_cfo(iq * float(gain[c]), float(cfo[c]),
+                                P.SAMPLE_RATE, float(phase0[c])).cpu().numpy()
+    wide = assemble_wideband(carriers, channels, device=device)
+    gen = torch.Generator(device).manual_seed(seed)
+    wide = add_awgn(wide, top, gen, signal_power=float(channels),
+                    device=device).cpu().numpy()
+    return wide, dict(snr_db=snr, cfo_hz=cfo, handover=handover,
+                      cell=np.arange(channels) % 8, new_cell=new_cell,
+                      dropout=(drop0 / fs36, drop1 / fs36))
 
 
 def staged_windows(wide: np.ndarray, advance: int, wide_len: int,
