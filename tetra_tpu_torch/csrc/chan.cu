@@ -151,8 +151,13 @@ __device__ __forceinline__ float2 cmul(float2 a, float2 w) {
   return make_float2(fmaf(a.x, w.x, -(a.y * w.y)), fmaf(a.x, w.y, a.y * w.x));
 }
 
+// Two blocks an SM cap a thread at 128 registers.  FT = 8 (n_ch = 512)
+// spilled 568 B there and took 0.181 ms a 6400-frame block on the H100;
+// at one block an SM it takes 255 registers, spills 20 B and takes
+// 0.123 ms (its smem of 69.6 KB a block would allow three).  FT = 4 and
+// 16 fit in 128 without a spill.
 template <int FT>
-__global__ void __launch_bounds__(FFT_THREADS, 2)
+__global__ void __launch_bounds__(FFT_THREADS, FT == 8 ? 1 : 2)
 fold_fft_kernel(const float *__restrict__ zr, const float *__restrict__ zi,
                 const float *__restrict__ F,    // (2 TPB, hop)
                 const float2 *__restrict__ tw,  // (n_ch,) exp(-2 pi i t/n_ch)

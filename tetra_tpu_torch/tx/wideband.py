@@ -7,6 +7,8 @@ whose resampler runs on a torch device.  The cell bit streams come from
 the port's own tx/cell.py; voice_cell_air adds traffic, slot stealing and
 TEA1 encryption to cell_air's multiplex, and marginal_air puts carriers
 at marginal SNR, some with a dropout and a cell change.
+cell_air_device builds cell_air's recipe on a torch device, for the wide
+configurations, where the numpy synthesis takes minutes.
 """
 
 from __future__ import annotations
@@ -163,6 +165,42 @@ def _multiplex(streams: list, channels: int, seed: int) -> np.ndarray:
     cfo = np.random.default_rng(seed).uniform(-400.0, 400.0, channels)
     return synthesize_wideband(bitmat, channels, cfo_hz=cfo, snr_db=25.0,
                                seed=seed)
+
+
+def cell_air_device(channels: int, seconds: float, n_cells: int = 8,
+                    seed: int = 7, device=None):
+    """cell_air's recipe built on `device` (the current CUDA device unless
+    the caller asks for the CPU), as marginal_air builds its air: carrier
+    c carries cell c % n_cells of cell_air at unit power with cell_air's
+    CFO draw (uniform in +-400 Hz), modulated at 36 kHz (tx.modulator),
+    mixed onto its carrier by assemble_wideband, and the band gets one
+    white floor 25 dB under a carrier in its 25 kHz channel
+    (tx.channel.add_awgn, noise from a torch.Generator seeded with
+    `seed`).  One seed gives one air on one device type.  Returns a
+    complex64 tensor of about `seconds` of air on the device."""
+    import torch
+
+    from .. import resolve_device
+    from .channel import add_awgn, apply_cfo
+    from .modulator import modulate
+
+    device = resolve_device(device)
+    fs36 = int(P.SAMPLE_RATE)
+    n36 = int(seconds * fs36)
+    cells = []
+    for i in range(n_cells):
+        bits, _ = downlink_bits(_cell_config(i), n36 // P.BITS_PER_TS + 2,
+                                start=TdmaTime(mn=2, fn=14, tn=1))
+        iq = modulate(bits[None], device=device)[0, :n36]
+        cells.append(iq / float(torch.mean(iq.abs() ** 2)) ** 0.5)
+    cfo = np.random.default_rng(seed).uniform(-400.0, 400.0, channels)
+    wide = assemble_wideband(
+        {c: apply_cfo(cells[c % n_cells], float(cfo[c]),
+                      P.SAMPLE_RATE).cpu().numpy() for c in range(channels)},
+        channels, device=device)
+    gen = torch.Generator(device).manual_seed(seed)
+    return add_awgn(wide, 25.0, gen, signal_power=float(channels),
+                    device=device)
 
 
 def cell_keystore(cells, seed: int = 7) -> str:
@@ -323,21 +361,23 @@ def marginal_air(channels: int, seconds: float, dropout_at: float = 2.0,
                       dropout=(drop0 / fs36, drop1 / fs36))
 
 
-def staged_windows(wide: np.ndarray, advance: int, wide_len: int,
-                   wb_k: int, device) -> list:
-    """Cut wideband air into superblocks of wb_k overlapping windows, the
-    inputs of TetraReceiver.process_wideband_staged: a list of float32
-    (wb_k, wide_len) re/im pairs on `device`."""
+def staged_windows(wide, advance: int, wide_len: int, wb_k: int, device,
+                   first: int = 0, count: int | None = None) -> list:
+    """Cut wideband air (a complex array, or a complex tensor on any
+    device) into superblocks of wb_k overlapping windows, the inputs of
+    TetraReceiver.process_wideband_staged: a list of float32 (wb_k,
+    wide_len) re/im pairs on `device`, `count` superblocks from
+    superblock `first` (all by default)."""
     import torch
 
     sb_adv = wb_k * advance
+    n = (len(wide) - wide_len) // sb_adv
     out = []
-    for s in range((len(wide) - wide_len) // sb_adv):
-        wins = np.stack([wide[s * sb_adv + j * advance:
-                              s * sb_adv + j * advance + wide_len]
-                         for j in range(wb_k)])
-        out.append(tuple(torch.from_numpy(part.astype(np.float32)).to(device)
-                         for part in (wins.real, wins.imag)))
+    for s in range(first, n if count is None else first + count):
+        wins = torch.stack([torch.as_tensor(
+            wide[s * sb_adv + j * advance:s * sb_adv + j * advance + wide_len])
+            for j in range(wb_k)]).to(device, torch.complex64)
+        out.append((wins.real.contiguous(), wins.imag.contiguous()))
     return out
 
 
