@@ -211,7 +211,6 @@ from tetra_tpu_torch.ops import chan_kernel as CK
 from tetra_tpu_torch.ops import demod_kernel as DK
 from tetra_tpu_torch.ops import mm_kernel as MK
 from tetra_tpu_torch.parallel import channelizer as CH
-from tetra_tpu_torch.profile_slice import _device_ms
 from tetra_tpu_torch.rx import demod_fast as DF
 from tetra_tpu_torch.rx import fec as FEC
 from tetra_tpu_torch.rx import lower_mac as LM
@@ -360,6 +359,15 @@ SOURCES = {
     "K3 fold_dft_resample": "tetra_tpu_torch/csrc/chan.cu",
     "K4 fold_dft": "tetra_tpu_torch/csrc/chan.cu",
 }
+
+
+def _device_ms(event) -> float:
+    """A profiler row's device ms (self_device_time_total, or
+    self_cuda_time_total on an older torch)."""
+    us = getattr(event, "self_device_time_total", None)
+    if us is None:
+        us = event.self_cuda_time_total
+    return us / 1e3
 
 
 def gpu_line() -> str:

@@ -204,6 +204,27 @@ def test_tetra_rx_profile_writes_a_trace(caps, tmp_path):
     assert trace.exists() and "traceEvents" in json.loads(trace.read_text())
 
 
+def test_tetra_rx_fleet_profile_holds_the_program_ranges(caps, tmp_path):
+    """--fleet --profile: the trace holds the receiver's own ranges, each
+    engine call inside a superblock."""
+    tdir = tmp_path / "trace"
+    res = run("tetra_tpu_torch", "tetra_rx", caps["wide"], "--wideband", 4,
+              "--fleet", "--wb-k", 2, "--status-every", 100, "--profile",
+              tdir)
+    assert last_json(res)[1]["locked"]
+    events = json.loads((tdir / "tetra_rx.pt.trace.json").read_text())
+    ranges: dict = {}
+    for e in events["traceEvents"]:
+        if e.get("ph") == "X" and e["name"].startswith("tetra."):
+            ranges.setdefault(e["name"], []).append(
+                (e["ts"], e["ts"] + e["dur"]))
+    assert {"tetra.ingest", "tetra.superblock", "tetra.engine",
+            "tetra.fec"} <= set(ranges), sorted(ranges)
+    for a, b in ranges["tetra.engine"]:
+        assert any(s0 <= a and b <= s1
+                   for s0, s1 in ranges["tetra.superblock"])
+
+
 def test_tetra_rx_mac_workers_raises(caps):
     """--mac-workers 2 (the host MAC pool: two CPU worker processes) no
     longer raises: it prints the summary JSON and the -v event lines of the

@@ -16,7 +16,8 @@ with --wideband N (channelized to N x 25 kHz channels).
 
 Everything on the device runs on --device: the current CUDA device by
 default, the CPU only when asked for (--device cpu).  --profile DIR writes
-a torch.profiler trace of the decode loop (DIR/tetra_rx.pt.trace.json).
+a torch.profiler trace of the decode loop (DIR/tetra_rx.pt.trace.json),
+with the fleet receiver's own tetra.* ranges (tetra_tpu_torch.spans).
 
 Usage:
   python -m tetra_tpu_torch.apps.tetra_rx capture.cf32 [--wideband N]
@@ -366,7 +367,10 @@ def main(argv=None):
     ap.add_argument("--profile", default=None, metavar="DIR",
                     help="capture a torch.profiler device+host trace of "
                          "the decode loop into DIR/tetra_rx.pt.trace.json "
-                         "(view with Perfetto or chrome://tracing)")
+                         "(view with Perfetto or chrome://tracing); with "
+                         "--fleet it holds the receiver's tetra.* ranges "
+                         "(superblock, step, frontend, demod, fetch, "
+                         "engine, fec, ...) around the work they launch")
     ap.add_argument("--codec-profile", default=None, metavar="JSON",
                     help="voice channel-codec profile (CRC generators + "
                          "5.5.3 matrix convention; voice.channel.load_profile"

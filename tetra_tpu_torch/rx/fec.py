@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from .. import params as P
+from .. import spans as S
 from ..tx import fec_enc
 from .viterbi import viterbi_decode
 
@@ -458,8 +459,9 @@ class _Dispatch:
         return host
 
     def wait(self) -> None:
-        if self.copy is not None:
-            self.copy.synchronize()
+        with S.span("fec.wait"):
+            if self.copy is not None:
+                self.copy.synchronize()
 
 
 def _packed_rows(blk_types, scramb_idx):

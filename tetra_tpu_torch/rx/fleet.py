@@ -27,8 +27,10 @@ import torch
 
 from .. import params as P
 from .. import resolve_device
+from .. import spans as S
 from ..ops._build import host_library
 from . import fec as rx_fec
+from .burst_sync import RX_UNLOCKED
 from .display import DisplayState
 from .native_mac import MacStateStruct
 from .tdma import TdmaTime
@@ -205,6 +207,13 @@ class FleetEngine:
                         ctypes.POINTER(ctypes.c_int64)), (channels,))
         self._chans = [FleetChanStruct.from_address(
             lib.fleet_chan_ptr(self.h, c)) for c in range(channels)]
+        # every channel's burst-sync state (the struct's first field) in
+        # one strided view over the native channel array
+        size = lib.fleet_chan_size()
+        self._sync_state = np.ndarray(
+            (channels,), np.int64, strides=(size,),
+            buffer=(ctypes.c_char * (size * channels)).from_address(
+                lib.fleet_chan_ptr(self.h, 0)))
         self._cap = 0
         self._t5 = self._meta = None
         # keystream table on the FEC device: slot 0 = SCRAMB_INIT, the
@@ -296,13 +305,15 @@ class FleetEngine:
         if C != self.channels or R != K * (sym_words + cnt_words):
             raise ValueError(f"words {words.shape} do not match {K} cycles "
                              f"of {n_chunks} chunks x {self.channels}")
-        self._ensure_rowbufs(K, sym_words * 16)
-        words = np.ascontiguousarray(words, np.int32)
-        n = int(self.lib.fleet_feed_sb(
-            self.h, words.ctypes.data, K, n_chunks,
-            self._t5.ctypes.data, self._meta.ctypes.data, self._cap))
-        self._check_rows(n)
-        return self._decode_dispatch(n, K)
+        with S.span("engine"):
+            self._ensure_rowbufs(K, sym_words * 16)
+            words = np.ascontiguousarray(words, np.int32)
+            with S.span("engine.feed"):
+                n = int(self.lib.fleet_feed_sb(
+                    self.h, words.ctypes.data, K, n_chunks,
+                    self._t5.ctypes.data, self._meta.ctypes.data, self._cap))
+            self._check_rows(n)
+            return self._decode_dispatch(n, K)
 
     def _check_rows(self, n: int) -> None:
         """The native feed signals a full row buffer by returning more rows
@@ -316,29 +327,33 @@ class FleetEngine:
         """One FEC pass over rows by the engine's program (split > typed >
         mixed), as the reference's decode()."""
         idx, ok = self._ks_cycle_map(rows_scrambs)
-        if ok:
-            if self.split_fec:
-                return rx_fec.decode_rows_split_packed(
+        # the FEC pass (the keystream map above is the engine's own time)
+        with S.span("fec"):
+            S.count("fec.rows", len(rows_types))
+            if ok:
+                if self.split_fec:
+                    return rx_fec.decode_rows_split_packed(
+                        rows_t5p, rows_types, idx, self._ks_dev,
+                        cch_bucket=self.cch_bucket,
+                        bbk_bucket=self.bbk_bucket)
+                if self.typed_fec:
+                    return rx_fec.decode_rows_typed_packed(
+                        rows_t5p, rows_types, idx, self._ks_dev,
+                        short_bucket=self.short_bucket,
+                        schf_bucket=self.schf_bucket,
+                        bbk_bucket=self.bbk_bucket or 512)
+                return rx_fec.decode_rows_mixed_packed(
                     rows_t5p, rows_types, idx, self._ks_dev,
-                    cch_bucket=self.cch_bucket, bbk_bucket=self.bbk_bucket)
-            if self.typed_fec:
-                return rx_fec.decode_rows_typed_packed(
-                    rows_t5p, rows_types, idx, self._ks_dev,
-                    short_bucket=self.short_bucket,
-                    schf_bucket=self.schf_bucket,
-                    bbk_bucket=self.bbk_bucket or 512)
-            return rx_fec.decode_rows_mixed_packed(
-                rows_t5p, rows_types, idx, self._ks_dev,
+                    min_bucket=self.pad_rows)
+            # > 15 distinct cells in one cycle: unpacked mixed decode
+            t5u = np.unpackbits(rows_t5p, axis=1)[:, :432]
+            t1u, oku = rx_fec.decode_rows_mixed(
+                t5u, rows_types, rows_scrambs, self.device,
                 min_bucket=self.pad_rows)
-        # > 15 distinct cells in one cycle: unpacked mixed decode
-        t5u = np.unpackbits(rows_t5p, axis=1)[:, :432]
-        t1u, oku = rx_fec.decode_rows_mixed(t5u, rows_types, rows_scrambs,
-                                            self.device,
-                                            min_bucket=self.pad_rows)
-        t1pad = np.concatenate(
-            [t1u, np.zeros((len(t1u), _T1P_BYTES * 8 - t1u.shape[1]),
-                           np.uint8)], axis=1)
-        return np.packbits(t1pad, axis=1), oku
+            t1pad = np.concatenate(
+                [t1u, np.zeros((len(t1u), _T1P_BYTES * 8 - t1u.shape[1]),
+                               np.uint8)], axis=1)
+            return np.packbits(t1pad, axis=1), oku
 
     def _decode_dispatch(self, n: int, K: int) -> int:
         """Emitted type-5 rows -> one FEC pass -> native MAC dispatch ->
@@ -423,11 +438,12 @@ class FleetEngine:
         okb = np.ascontiguousarray(ok, np.uint8)
         type1p = np.ascontiguousarray(type1p)
         half_cb = getattr(self.voice_cb, "half", None)
-        self.lib.fleet_dispatch(self.h, type1p.ctypes.data, okb.ctypes.data,
-                                meta.ctypes.data, n,
-                                int(self.voice_cb is not None),
-                                int(half_cb is not None),
-                                actions.ctypes.data, times.ctypes.data)
+        with S.span("engine.dispatch"):
+            self.lib.fleet_dispatch(self.h, type1p.ctypes.data,
+                                    okb.ctypes.data, meta.ctypes.data, n,
+                                    int(self.voice_cb is not None),
+                                    int(half_cb is not None),
+                                    actions.ctypes.data, times.ctypes.data)
         if self.voice_cb is not None and actions.any():
             for i in np.nonzero(actions)[0]:
                 c = int(chans[i])
@@ -481,6 +497,10 @@ class FleetEngine:
 
     def locked(self, c: int) -> bool:
         return self._chans[c].state == 2
+
+    def unlocked(self) -> np.ndarray:
+        """(C,) bool: the channels hunting for a burst (RX_UNLOCKED)."""
+        return self._sync_state == RX_UNLOCKED
 
     def crc_counts(self, c: int) -> tuple[int, int]:
         ch = self._chans[c]

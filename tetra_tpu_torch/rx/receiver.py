@@ -37,6 +37,7 @@ import torch
 
 from .. import params as P
 from .. import resolve_device
+from .. import spans as S
 from ..parallel import channelizer as CH
 from . import demod as demod_exact
 from . import demod_fast, demod_ff
@@ -93,9 +94,11 @@ def _wideband_step(dstate, wr, wi, hr, hi, n_ch: int, t36: int,
     if i16:
         wr = wr.to(torch.float32) * (1.0 / 32768.0)
         wi = wi.to(torch.float32) * (1.0 / 32768.0)
-    rr, ri, hr, hi = CH._front_end_block(wr, wi, hr, hi, n_ch, t36)
-    dstate, outs = demod_fast._demod_block_impl(dstate, rr.T, ri.T, n_chunks,
-                                                tc_out=tc_out)
+    with S.profiled("frontend"):
+        rr, ri, hr, hi = CH._front_end_block(wr, wi, hr, hi, n_ch, t36)
+    with S.profiled("demod"):
+        dstate, outs = demod_fast._demod_block_impl(dstate, rr.T, ri.T,
+                                                    n_chunks, tc_out=tc_out)
     return dstate, outs, hr, hi
 
 
@@ -318,8 +321,20 @@ class TetraReceiver:
         each window as one cycle."""
         if not self.wideband:
             raise ValueError("construct with wideband=N")
-        wb = self._wb
         raw = np.asarray(raw)
+        if self.fleet is None:
+            self._wideband_cycles(self._buffer_wideband(raw))
+            return
+        with S.span("ingest"):
+            with S.span("ingest.buffer"):
+                i16 = self._buffer_wideband(raw)
+            S.count("ingest.bytes_fed", raw.nbytes)
+            S.count("ingest.bytes_copied", self._wb["buf"].nbytes)
+            self._wideband_superblocks(i16)
+
+    def _buffer_wideband(self, raw: np.ndarray) -> bool:
+        """Append raw IQ to the wideband buffer; True for a cs16 feed."""
+        wb = self._wb
         i16 = raw.dtype == np.int16
         if i16:
             if wb["buf"].dtype != np.int16:
@@ -332,38 +347,56 @@ class TetraReceiver:
         else:
             wb["buf"] = np.concatenate([wb["buf"],
                                         np.asarray(raw, np.complex64)])
+        return i16
+
+    def _to_device(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+    def _wideband_cycles(self, i16: bool) -> None:
+        """The per-channel receiver: one cycle per full window."""
+        wb = self._wb
         stride = 2 if i16 else 1
-        to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(
-            self.device)
-        if self.fleet is None:
-            while len(wb["buf"]) >= stride * wb["wide_len"]:
-                win = wb["buf"][:stride * wb["wide_len"]]
-                wb["buf"] = wb["buf"][stride * wb["advance"]:]
-                if i16:
-                    wr, wi = win[0::2], win[1::2]
-                else:
-                    wr = win.real.astype(np.float32)
-                    wi = win.imag.astype(np.float32)
-                (self.state, outs, wb["hist_r"],
-                 wb["hist_i"]) = _wideband_step(
-                    self.state, to(wr), to(wi), wb["hist_r"], wb["hist_i"],
-                    self.wideband, wb["t36"], wb["n_chunks"], i16)
-                self._post_demod(outs)
-            return
+        to = self._to_device
+        while len(wb["buf"]) >= stride * wb["wide_len"]:
+            win = wb["buf"][:stride * wb["wide_len"]]
+            wb["buf"] = wb["buf"][stride * wb["advance"]:]
+            if i16:
+                wr, wi = win[0::2], win[1::2]
+            else:
+                wr = win.real.astype(np.float32)
+                wi = win.imag.astype(np.float32)
+            (self.state, outs, wb["hist_r"],
+             wb["hist_i"]) = _wideband_step(
+                self.state, to(wr), to(wi), wb["hist_r"], wb["hist_i"],
+                self.wideband, wb["t36"], wb["n_chunks"], i16)
+            self._post_demod(outs)
+
+    def _wideband_superblocks(self, i16: bool) -> None:
+        """The fleet receiver: one superblock per wb_k full windows."""
+        wb = self._wb
+        stride = 2 if i16 else 1
         K = self.wb_k
         need = stride * ((K - 1) * wb["advance"] + wb["wide_len"])
         while len(wb["buf"]) >= need:
-            wins = [wb["buf"][stride * j * wb["advance"]:
-                              stride * (j * wb["advance"] + wb["wide_len"])]
-                    for j in range(K)]
-            if i16:
-                wr = np.stack([w[0::2] for w in wins])
-                wi = np.stack([w[1::2] for w in wins])
-            else:
-                wr = np.stack([w.real for w in wins]).astype(np.float32)
-                wi = np.stack([w.imag for w in wins]).astype(np.float32)
-            wb["buf"] = wb["buf"][stride * K * wb["advance"]:]
-            self._superblock(to(wr), to(wi), i16)
+            with S.span("ingest.frame"):
+                wins = [wb["buf"][stride * j * wb["advance"]:
+                                  stride * (j * wb["advance"]
+                                            + wb["wide_len"])]
+                        for j in range(K)]
+                if i16:
+                    wr = np.stack([w[0::2] for w in wins])
+                    wi = np.stack([w[1::2] for w in wins])
+                else:
+                    wr = np.stack([w.real for w in wins]).astype(np.float32)
+                    wi = np.stack([w.imag for w in wins]).astype(np.float32)
+                wb["buf"] = wb["buf"][stride * K * wb["advance"]:]
+            # the stack wrote each window once, the cast (cf32) once more
+            S.count("ingest.bytes_copied",
+                    (wr.nbytes + wi.nbytes) * (1 if i16 else 2))
+            with S.span("ingest.upload"):
+                wr, wi = self._to_device(wr), self._to_device(wi)
+            with S.span("superblock"):
+                self._superblock(wr, wi, i16)
 
     def process_wideband_staged(self, wr, wi) -> None:
         """Superblock feed from windows already on the device: wr/wi
@@ -375,13 +408,17 @@ class TetraReceiver:
         shape = (self.wb_k, self._wb["wide_len"])
         if tuple(wr.shape) != shape or tuple(wi.shape) != shape:
             raise ValueError(f"staged windows must be {shape}")
-        self._superblock(wr, wi, False)
+        with S.span("superblock"):
+            self._superblock(wr, wi, False)
 
     def _superblock(self, wr, wi, i16: bool) -> None:
         wb = self._wb
-        step = lambda: _wideband_step_scan(
-            self.state, wr, wi, wb["hist_r"], wb["hist_i"], self.wideband,
-            wb["t36"], wb["n_chunks"], i16, self.wb_k)
+
+        def step():
+            with S.span("step"):
+                return _wideband_step_scan(
+                    self.state, wr, wi, wb["hist_r"], wb["hist_i"],
+                    self.wideband, wb["t36"], wb["n_chunks"], i16, self.wb_k)
         if not (self.wb_pipeline and self.device.type == "cuda"):
             self.state, fused, wb["hist_r"], wb["hist_i"] = step()
             self._consume_fused(fused)
@@ -424,11 +461,12 @@ class TetraReceiver:
         """A superblock's output on the host: a device tensor is fetched;
         a (pinned buffer, event) pair waits for its copy, which raises
         here if the side stream's work failed."""
-        if isinstance(fused, tuple):
-            buf, done = fused
-            done.synchronize()
-            return buf.numpy()
-        return fused.cpu().numpy()
+        with S.span("fetch"):
+            if isinstance(fused, tuple):
+                buf, done = fused
+                done.synchronize()
+                return buf.numpy()
+            return fused.cpu().numpy()
 
     def _post_demod_fused(self, fused: np.ndarray) -> None:
         """Superblock output, (K*G + 2, C) int32 in the pack_cycle_tc
@@ -440,6 +478,10 @@ class TetraReceiver:
         if nz.any():
             self.sym_quality[nz] = (dsum[nz] / vcount[nz]).astype(np.float32)
         self._const = None
+        # bits fed to carriers still hunting for a burst (the valid-count
+        # row sums the words' count rows on the card)
+        S.count("hunt.bits", 2 * int(vcount[self.fleet.unlocked()].sum(
+            dtype=np.float64)))
         self.fleet.process_packed2(fused[:-2], self.wb_k,
                                    self._wb["n_chunks"])
 
