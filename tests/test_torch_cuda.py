@@ -362,3 +362,81 @@ def test_pipelined_matches_sync_on_card(dev):
     assert pcie.fleet.state_bytes() == tun.fleet.state_bytes()
     np.testing.assert_array_equal(pcie.sym_quality, tun.sym_quality)
     assert sum(pcie.locked(c) for c in range(n)) >= n - 1
+
+
+def _ingest_air(rx, n_sb: int):
+    """tests/torch_ingest.py's cf32 and cs16 of one air, exactly n_sb of
+    rx's superblocks, and its irregular chunk lengths.  The helpers are
+    imported from this file's directory, which pytest puts on sys.path
+    (a `tests` package installed on the host would shadow `tests.`)."""
+    from torch_ingest import chunk_sizes, quantized, stream_len
+    from tetra_tpu_torch.tx.wideband import cell_air
+    n = stream_len(rx, n_sb)
+    fs = rx.wideband * 25_000
+    cf32, cs16 = quantized(cell_air(rx.wideband, n / fs + 0.05, 8))
+    return cf32[:n], cs16[:2 * n], chunk_sizes(rx._wb["advance"], rx.wb_k, n)
+
+
+def test_host_feed_matches_staged_on_card(dev):
+    """The device ring on the card: cf32 and cs16 fed in irregular chunks
+    (one sample, a prime, one advance, several superblocks in one call,
+    each longer than a pinned staging buffer) cut the staged windows bit
+    for bit and decode bit-equal to the staged feed."""
+    from torch_ingest import (Spy, assert_same_decode, assert_same_packed,
+                              assert_same_windows, chunks)
+    from tetra_tpu_torch.rx.receiver import TetraReceiver
+    from tetra_tpu_torch.tx.wideband import staged_windows
+
+    n, k, n_sb = 16, 2, 8
+    rxs = [TetraReceiver(wideband=n, fleet=True, wb_k=k, device=dev)
+           for _ in range(3)]
+    spies = [Spy(rx) for rx in rxs]
+    cf32, cs16, sizes = _ingest_air(rxs[0], n_sb)
+    for chunk in chunks(cf32, sizes):
+        rxs[0].process_wideband(chunk)
+    for chunk in chunks(cs16, sizes):
+        rxs[1].process_wideband(chunk)
+    for sb in staged_windows(cf32, rxs[2]._wb["advance"],
+                             rxs[2]._wb["wide_len"], k, dev, count=n_sb):
+        rxs[2].process_wideband_staged(*sb)
+    assert rxs[2]._wb["ring"] is None
+    for rx, spy in zip(rxs[:2], spies[:2]):
+        assert rx._wb["ring"].device == dev
+        assert_same_windows(spy.windows, spies[2].windows)
+        assert_same_packed(spy.packed, spies[2].packed)
+        assert_same_decode(rx, rxs[2])
+        assert rx.fleet.state_bytes() == rxs[2].fleet.state_bytes()
+    assert sum(rxs[0].locked(c) for c in range(n)) == n
+
+
+def test_pipelined_host_feed_matches_sync_on_card(dev):
+    """The pcie receiver (wb_pipeline) host-fed one advance a call, each
+    call behind a device sleep on the caller's stream, so the ring's
+    copies queue while the host goes on writing its pinned staging
+    buffers: after flush_wideband() it decodes bit-equal to the tunnel
+    receiver fed the same chunks, so no staging buffer was rewritten
+    before its copy landed."""
+    from torch_ingest import (Spy, assert_same_decode, assert_same_packed,
+                              chunks)
+    from tetra_tpu_torch.rx.receiver import TetraReceiver
+
+    n, k, n_sb = 8, 2, 6
+    pcie, tun = (TetraReceiver(wideband=n, fleet=True, wb_k=k,
+                               link_profile=p, device=dev)
+                 for p in ("pcie", "tunnel"))
+    assert pcie.wb_pipeline and not tun.wb_pipeline
+    # no window copies on the pcie side: they would wait for the copies
+    spy_p, spy_t = Spy(pcie, windows=False), Spy(tun, windows=False)
+    cf32, _, _ = _ingest_air(pcie, n_sb)
+    adv = pcie._wb["advance"]
+    sizes = [adv] * (len(cf32) // adv) + [len(cf32) % adv]
+    for chunk in chunks(cf32, sizes):
+        torch.cuda._sleep(20_000_000)
+        pcie.process_wideband(chunk)
+        tun.process_wideband(chunk)
+    pcie.flush_wideband()
+    tun.flush_wideband()
+    assert len(spy_p.packed) == len(spy_t.packed) == n_sb
+    assert_same_packed(spy_p.packed, spy_t.packed)
+    assert_same_decode(pcie, tun)
+    assert pcie.fleet.state_bytes() == tun.fleet.state_bytes()

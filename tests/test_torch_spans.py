@@ -1,9 +1,9 @@
 """The port's tracer (tetra_tpu_torch.spans) in the fleet receiver on the
 CPU: one record a superblock, fed staged and fed host cf32 one advance a
 call; spans nested inside their parents; the hunting counter against the
-valid counts of the superblock's words; the ingest's copied bytes against
-the buffer policy; the tetra.* ranges in a profiler trace, and no range
-made without a profiler; the ring's fixed size."""
+valid counts of the superblock's words; the ingest's copied and uploaded
+bytes against the fed bytes; the tetra.* ranges in a profiler trace, and
+no range made without a profiler; the ring's fixed size."""
 
 from __future__ import annotations
 
@@ -108,28 +108,36 @@ def test_one_record_a_superblock(air, feed):
 
 
 def test_ingest_bytes_follow_the_buffer_policy(air):
-    """Each call's concatenate writes the whole grown buffer; each
-    superblock's stack and cast write its K windows twice over, re and
-    im (float32)."""
+    """Each fed byte is written once on the host (into the ring, or into
+    its staging on the card) and once into the ring: ingest.bytes_copied
+    and ingest.bytes_uploaded each equal ingest.bytes_fed, one write a
+    call.  A feed the ingest must cast (complex128) adds the cast's bytes
+    to the copies, and uploads each sample's complex64 once."""
     rx = _receiver()
-    adv, wl = rx._wb["advance"], rx._wb["wide_len"]
-    need = (KW - 1) * adv + wl
     S.clear()
-    buf = copied = fed = 0
-    for chunk in _host_calls(rx, air, N_SB):
+    calls = _host_calls(rx, air, N_SB)
+    for chunk in calls:
         rx.process_wideband(chunk)
-        buf += len(chunk)
-        fed += 8 * len(chunk)
-        copied += 8 * buf
-        while buf >= need:
-            copied += 2 * 2 * KW * wl * 4
-            buf -= KW * adv
     rec = S.records()
     assert len(rec) == N_SB
+    fed = 8 * sum(len(c) for c in calls)
     assert int(rec["ingest.bytes_fed"].sum()) == fed
-    assert int(rec["ingest.bytes_copied"].sum()) == copied
+    assert int(rec["ingest.bytes_copied"].sum()) == fed
+    assert int(rec["ingest.bytes_uploaded"].sum()) == fed
+    assert (rec["ingest.bytes_uploaded"] == rec["ingest.bytes_fed"]).all()
     assert (rec["calls"][:, S.SPANS.index("ingest.buffer")].sum()
-            == len(_host_calls(rx, air, N_SB)))
+            == rec["calls"][:, S.SPANS.index("ingest.upload")].sum()
+            == len(calls))
+
+    rx = _receiver()
+    S.clear()
+    for chunk in calls:
+        rx.process_wideband(chunk.astype(np.complex128))
+    rec = S.records()
+    assert len(rec) == N_SB
+    assert int(rec["ingest.bytes_fed"].sum()) == 2 * fed
+    assert int(rec["ingest.bytes_copied"].sum()) == 2 * fed
+    assert int(rec["ingest.bytes_uploaded"].sum()) == fed
 
 
 def test_hunting_bits_on_noise_then_on_cells(air):

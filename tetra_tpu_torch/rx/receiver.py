@@ -282,7 +282,18 @@ class TetraReceiver:
             t50=t50, t36=t36, hop=hop, L=L,
             wide_len=(t50 - 1) * hop + L, advance=t50 * hop,
             n_chunks=demod_fast.n_chunks_for(t36),
-            buf=np.zeros(0, np.complex64), hist_r=z(), hist_i=z())
+            hist_r=z(), hist_i=z())
+        if self.fleet is None:
+            self._wb["buf"] = np.zeros(0, np.complex64)
+        else:
+            # the host feed's ring on the device, allocated by the first
+            # process_wideband call: (cap, 2) (re, im) pairs of the raw
+            # feed (float32 for cf32, int16 for cs16), `fill` of them
+            # pending; a superblock's wb_k windows span `need`
+            self._wb.update(ring=None, fill=0, i16=False,
+                            need=(self.wb_k - 1) * self._wb["advance"]
+                            + self._wb["wide_len"])
+            self._staging = []      # [pinned buffer, its copy's event] x 2
         # the fused front end never exposes per-channel IQ for a coarse CFO
         # preset; the FLL pulls in from zero
         self._cfo_primed = True
@@ -316,9 +327,10 @@ class TetraReceiver:
 
     def process_wideband(self, raw: np.ndarray) -> None:
         """Feed raw wideband IQ at N*25 kHz (complex, or interleaved cs16
-        int16; any length, buffered internally).  The fleet receiver runs
-        every wb_k full windows as one superblock, the per-channel one
-        each window as one cycle."""
+        int16; any length, buffered internally).  The fleet receiver
+        buffers in a ring on its device and runs every wb_k full windows
+        as one superblock, the per-channel one buffers on the host and
+        runs each window as one cycle."""
         if not self.wideband:
             raise ValueError("construct with wideband=N")
         raw = np.asarray(raw)
@@ -326,14 +338,133 @@ class TetraReceiver:
             self._wideband_cycles(self._buffer_wideband(raw))
             return
         with S.span("ingest"):
-            with S.span("ingest.buffer"):
-                i16 = self._buffer_wideband(raw)
             S.count("ingest.bytes_fed", raw.nbytes)
-            S.count("ingest.bytes_copied", self._wb["buf"].nbytes)
-            self._wideband_superblocks(i16)
+            self._ring_feed(raw)
+
+    def _ring_feed(self, raw: np.ndarray) -> None:
+        """The fleet receiver's host feed: every sample is written into the
+        device ring once; each time wb_k windows are pending, they are cut
+        on the device into one superblock.  A chunk longer than the ring's
+        free span goes in pieces, superblocks run in between."""
+        wb = self._wb
+        i16 = raw.dtype == np.int16
+        if i16 != wb["i16"]:
+            if wb["fill"]:
+                raise ValueError("cannot mix cs16 and cf32 feeds")
+            wb.update(ring=None, i16=i16)
+        if i16 and len(raw) % 2:
+            raise ValueError("cs16 feed must be whole I/Q pairs")
+        pairs = np.ascontiguousarray(raw if i16 else
+                                     np.asarray(raw, np.complex64))
+        if pairs is not raw:
+            # a cast to complex64, or a gather into one contiguous array
+            S.count("ingest.bytes_copied", pairs.nbytes)
+        pairs = pairs.view(np.int16 if i16 else np.float32).reshape(-1, 2)
+        pos = 0
+        while True:
+            while wb["fill"] >= wb["need"]:
+                self._ring_superblock()
+            if pos == len(pairs):
+                return
+            if wb["ring"] is None:
+                self._ring_alloc(0)
+            take = min(len(pairs) - pos, len(wb["ring"]) - wb["fill"])
+            pos += self._ring_write(pairs[pos:pos + take])
+
+    def _ring_alloc(self, pending: int) -> None:
+        """An empty ring for the current feed's dtype: one superblock's
+        windows and one advance more, or `pending` samples if more."""
+        wb = self._wb
+        wb["ring"] = torch.empty(
+            (max(wb["need"] + wb["advance"], pending), 2),
+            dtype=torch.int16 if wb["i16"] else torch.float32,
+            device=self.device)
+        wb["fill"] = 0
+
+    def _ring_write(self, pairs: np.ndarray) -> int:
+        """Write (re, im) pairs at the ring's fill mark; returns how many
+        were taken.  On CUDA they go through a pinned staging buffer (at
+        most its length) and are copied on to the ring while the host goes
+        on: at 1024 carriers on an H100 that halves the ingest's time
+        against a synchronous copy from the caller's pageable array."""
+        wb = self._wb
+        pinned = self.device.type == "cuda"
+        with S.span("ingest.buffer"):
+            if pinned:
+                slot = self._stage()
+                pairs = pairs[:len(slot[0])]
+                src = slot[0][:len(pairs)]
+                src.copy_(torch.from_numpy(pairs))
+            else:
+                src = torch.from_numpy(pairs)
+            dst = wb["ring"][wb["fill"]:wb["fill"] + len(pairs)]
+            wb["fill"] += len(pairs)
+        with S.span("ingest.upload"):
+            dst.copy_(src, non_blocking=pinned)
+            if pinned:
+                slot[1] = torch.cuda.Event()
+                slot[1].record(torch.cuda.current_stream(self.device))
+        # the copy into pinned staging, or into the ring itself on the CPU
+        S.count("ingest.bytes_copied", src.nbytes)
+        S.count("ingest.bytes_uploaded", src.nbytes)
+        return len(pairs)
+
+    def _stage(self) -> list:
+        """The next of two pinned staging buffers, [buffer, event of its
+        last copy], once that copy has landed: one advance of the ring's
+        dtype each."""
+        dtype = self._wb["ring"].dtype
+        if not self._staging or self._staging[0][0].dtype != dtype:
+            self._staging = [[torch.empty((self._wb["advance"], 2),
+                                          dtype=dtype, pin_memory=True),
+                              None] for _ in range(2)]
+        slot = self._staging[0]
+        self._staging.reverse()
+        if slot[1] is not None:
+            slot[1].synchronize()
+        return slot
+
+    def _ring_superblock(self) -> None:
+        """Cut the ring's first wb_k windows on the device, move what is
+        left of it to its front, and run the superblock."""
+        wb = self._wb
+        K, adv, ring = self.wb_k, wb["advance"], wb["ring"]
+        with S.span("ingest.frame"):
+            win = ring.as_strided((K, wb["wide_len"], 2), (2 * adv, 2, 1), 0)
+            wr, wi = win[..., 0].contiguous(), win[..., 1].contiguous()
+            done = K * adv
+            left = wb["fill"] - done
+            tail = ring[done:done + left]
+            # one copy; through a temporary where the two spans overlap
+            ring[:left].copy_(tail.clone() if left > done else tail)
+            wb["fill"] = left
+        with S.span("superblock"):
+            self._superblock(wr, wi, wb["i16"])
+
+    def _ring_pending(self) -> np.ndarray:
+        """The samples pending in the ring as a host array: complex64, or
+        interleaved int16 for a cs16 feed."""
+        wb = self._wb
+        if wb["ring"] is None:
+            return np.zeros(0, np.int16 if wb["i16"] else np.complex64)
+        pairs = wb["ring"][:wb["fill"]].cpu().numpy().copy()
+        return pairs.reshape(-1) if wb["i16"] else \
+            pairs.view(np.complex64).reshape(-1)
+
+    def _ring_load(self, buf: np.ndarray) -> None:
+        """Put a checkpoint's pending samples (complex64, or interleaved
+        int16) into a new ring."""
+        wb = self._wb
+        wb.update(ring=None, fill=0, i16=buf.dtype == np.int16)
+        pairs = buf.view(np.int16 if wb["i16"] else np.float32).reshape(-1, 2)
+        if len(pairs):
+            self._ring_alloc(len(pairs))
+            wb["ring"][:len(pairs)].copy_(torch.from_numpy(pairs))
+            wb["fill"] = len(pairs)
 
     def _buffer_wideband(self, raw: np.ndarray) -> bool:
-        """Append raw IQ to the wideband buffer; True for a cs16 feed."""
+        """The per-channel receiver: append raw IQ to the wideband buffer;
+        True for a cs16 feed."""
         wb = self._wb
         i16 = raw.dtype == np.int16
         if i16:
@@ -370,33 +501,6 @@ class TetraReceiver:
                 self.state, to(wr), to(wi), wb["hist_r"], wb["hist_i"],
                 self.wideband, wb["t36"], wb["n_chunks"], i16)
             self._post_demod(outs)
-
-    def _wideband_superblocks(self, i16: bool) -> None:
-        """The fleet receiver: one superblock per wb_k full windows."""
-        wb = self._wb
-        stride = 2 if i16 else 1
-        K = self.wb_k
-        need = stride * ((K - 1) * wb["advance"] + wb["wide_len"])
-        while len(wb["buf"]) >= need:
-            with S.span("ingest.frame"):
-                wins = [wb["buf"][stride * j * wb["advance"]:
-                                  stride * (j * wb["advance"]
-                                            + wb["wide_len"])]
-                        for j in range(K)]
-                if i16:
-                    wr = np.stack([w[0::2] for w in wins])
-                    wi = np.stack([w[1::2] for w in wins])
-                else:
-                    wr = np.stack([w.real for w in wins]).astype(np.float32)
-                    wi = np.stack([w.imag for w in wins]).astype(np.float32)
-                wb["buf"] = wb["buf"][stride * K * wb["advance"]:]
-            # the stack wrote each window once, the cast (cf32) once more
-            S.count("ingest.bytes_copied",
-                    (wr.nbytes + wi.nbytes) * (1 if i16 else 2))
-            with S.span("ingest.upload"):
-                wr, wi = self._to_device(wr), self._to_device(wi)
-            with S.span("superblock"):
-                self._superblock(wr, wi, i16)
 
     def process_wideband_staged(self, wr, wi) -> None:
         """Superblock feed from windows already on the device: wr/wi
@@ -632,7 +736,8 @@ class TetraReceiver:
                     m.cell.scramb_init, m.crc_oks, m.crc_fails], np.int64)
         data["sym_quality"] = self.sym_quality
         if self.wideband:
-            data["wb_buf"] = self._wb["buf"]
+            data["wb_buf"] = self._wb["buf"] if self.fleet is None \
+                else self._ring_pending()
             data["wb_hist_r"] = self._wb["hist_r"].cpu().numpy()
             data["wb_hist_i"] = self._wb["hist_i"].cpu().numpy()
         np.savez(path, **data)
@@ -679,8 +784,12 @@ class TetraReceiver:
                 d.mcc, d.mnc, d.cc = m.cell.mcc, m.cell.mnc, m.cell.colour_code
         self.sym_quality = z["sym_quality"]
         if self.wideband and "wb_hist_r" in z.files:
-            self._wb["buf"] = z["wb_buf"].astype(np.complex64) \
+            buf = z["wb_buf"].astype(np.complex64) \
                 if z["wb_buf"].dtype != np.int16 else z["wb_buf"]
+            if self.fleet is None:
+                self._wb["buf"] = buf
+            else:
+                self._ring_load(buf)
             self._wb["hist_r"], self._wb["hist_i"] = hist_from_numpy(
                 z["wb_hist_r"], z["wb_hist_i"], self.device)
         # the restored FLL state must not be clobbered by the coarse-CFO

@@ -31,9 +31,11 @@ profiler running no range is made.
 Spans (parent in brackets):
 
     ingest                      TetraReceiver.process_wideband, fleet mode
-      ingest.buffer   [ingest]  the growing buffer's concatenate
-      ingest.frame    [ingest]  the windows' stack and cast
-      ingest.upload   [ingest]  the host-to-device copies
+      ingest.buffer   [ingest]  each write's copy into pinned staging
+                                (on a CPU device, bookkeeping only)
+      ingest.frame    [ingest]  the windows cut from the device ring and
+                                its tail moved to its front (enqueued)
+      ingest.upload   [ingest]  each write's copy into the ring (enqueued)
     superblock        [ingest]  one superblock until its PDUs are out
       step      [superblock]    the K cycles' enqueue
       fetch     [superblock]    the host blocked on the card
@@ -45,8 +47,11 @@ Spans (parent in brackets):
 
 Counters: fec.rows (rows handed to the card's FEC), hunt.bits (bits fed
 to carriers that were unlocked when the superblock's feed began),
-ingest.bytes_fed (IQ bytes given to process_wideband) and
-ingest.bytes_copied (bytes its concatenate, stack and cast wrote).
+ingest.bytes_fed (IQ bytes given to process_wideband),
+ingest.bytes_copied (bytes the ingest wrote on the host: a dtype cast,
+and each write's copy into pinned staging, or into the ring itself on a
+CPU device) and ingest.bytes_uploaded (bytes written into the ring from
+host memory).
 """
 
 from __future__ import annotations
@@ -62,7 +67,7 @@ SPANS = ("ingest", "ingest.buffer", "ingest.frame", "ingest.upload",
          "fec.wait", "engine.dispatch")
 PROFILED = ("frontend", "demod")
 COUNTERS = ("fec.rows", "hunt.bits", "ingest.bytes_fed",
-            "ingest.bytes_copied")
+            "ingest.bytes_copied", "ingest.bytes_uploaded")
 RING_ROWS = 16384
 
 _HEAD = ("seq", "start_ns", "end_ns")
