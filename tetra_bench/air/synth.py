@@ -18,6 +18,11 @@ period, and one inverse FFT gives the air: periodic by construction, so
 slot grid, phase, filters and noise run on across the wrap and only the
 multiframe number in the SYNC PDUs jumps back.
 
+The traffic's voice arm and the configuration's crypto arm (downlink.py)
+are drawn from the seed as well: each cell's codec frames, and the
+encrypted cells' keys (cipher_arm; the harness writes them for the
+receiver as a text keystore).
+
 Sizes: a period of P multiframes has 25,000 * 1.02 * P bins per carrier
 (204,000 at 8 multiframes), so 1024 carriers make 209 M complex samples
 (0.84 GB a plane in float32).
@@ -30,8 +35,9 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from . import cipher
 from . import protocol as P
-from .downlink import Cell, downlink
+from .downlink import Cell, Crypto, Voice, downlink
 
 
 @dataclass
@@ -72,14 +78,49 @@ def symbols_of(bits: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     return dib, np.exp(1j * np.pi / 4 * (eighths % 8))
 
 
+def voice_of(spec: dict, i: int, seed: int) -> Voice:
+    """Cell i's voice arm from a traffic mix's `voice`: {"timeslots": [tn,
+    ...], "steals": [{"kind": "first" | "both", "timeslot": tn, "frames":
+    [fn or null, ...]}, ...]}; cell i steals frame frames[i % len(frames)]
+    of every multiframe (null: none; a later entry wins on the same slot).
+    Its codec frames are drawn from the seed."""
+    steals = {}
+    for s in spec.get("steals", []):
+        fn = s["frames"][i % len(s["frames"])]
+        if fn is not None:
+            if s["kind"] not in ("first", "both"):
+                raise ValueError(f"unknown steal {s['kind']!r}")
+            steals[(int(fn), int(s["timeslot"]))] = s["kind"]
+    rng = np.random.default_rng([seed, 200 + i])
+    return Voice(timeslots=frozenset(spec["timeslots"]),
+                 frames=lambda: rng.integers(0, 2, (2, 137)).astype(np.uint8),
+                 steals=steals)
+
+
+def cipher_arm(spec: dict | None, cells: list, seed: int):
+    """({cell index: Crypto}, keystore text or None) of a configuration's
+    `crypto`: {"algorithm": "TEA1", "cells": [i, ...], "cck_id": n}; the
+    keys are drawn from the seed."""
+    if spec is None:
+        return {}, None
+    if spec["algorithm"] != "TEA1":
+        raise ValueError(f"unknown cipher {spec['algorithm']!r}")
+    keys = cipher.cipher_keys(seed, spec["cells"])
+    return ({i: Crypto(k, spec["cck_id"]) for i, k in keys.items()},
+            cipher.keystore_text(cells, keys, spec["cck_id"]))
+
+
 def build_air(carriers: int, cells: list, occupied: np.ndarray,
               period_multiframes: int, snr_db: float, cfo_max_hz: float,
-              seed: int, device, ext: int) -> Air:
+              seed: int, device, ext: int, voice: dict | None = None,
+              crypto: dict | None = None) -> Air:
     """Air for `carriers` channels; carrier c, where occupied, carries
     cells[c % len(cells)] at unit power, with a CFO drawn uniformly in
     +-cfo_max_hz and rounded to whole cycles a period, and a random
     phase; the band holds white noise snr_db under one carrier in each
-    25 kHz channel.  Everything random is drawn from `seed`."""
+    25 kHz channel.  voice and crypto: the traffic's and the
+    configuration's arms (voice_of, cipher_arm), or signalling only.
+    Everything random is drawn from `seed`."""
     if period_multiframes % 4:
         raise ValueError("the period must be a whole number of 4 "
                          "multiframes")
@@ -94,10 +135,17 @@ def build_air(carriers: int, cells: list, occupied: np.ndarray,
     phase = rng.uniform(0.0, 2 * np.pi, carriers)
     start = int(rng.integers(0, n))
 
+    ciphers, _ = cipher_arm(crypto, cells, seed)
     dibits, records, spectra = [], [], []
     for i, cell in enumerate(cells):
+        arms = {}
+        if voice is not None:
+            arms["voice"] = voice_of(voice, i, seed)
+        if i in ciphers:
+            arms["crypto"] = ciphers[i]
+            arms["wrap"] = period_multiframes
         bits, recs = downlink(cell, period_slots,
-                              np.random.default_rng([seed, 100 + i]))
+                              np.random.default_rng([seed, 100 + i]), **arms)
         dib, sym = symbols_of(bits)
         dibits.append(dib)
         records.append(recs)

@@ -3,9 +3,12 @@ the correctness check and the metrics.
 
 Everything a cell needs is found by name: the cell in BENCHMARK.json,
 its configuration in configs/<config>.json, its traffic mix in
-traffic/<traffic>.json and each metric's reader in metrics/<name>.py
-(a module with read(run) -> number or None).  The program under test is
-tetra_tpu_torch's fleet receiver; nothing here imports the JAX package.
+traffic/<traffic>.json, each metric's reader in metrics/<name>.py
+(a module with read(run) -> number or None), and, where the
+configuration names a "cell_module", that module in cells/<name>.py with
+its limits in cells/<name>.json (see run_cell for its four calls).  The
+program under test is tetra_tpu_torch's fleet receiver; nothing here
+imports the JAX package.
 """
 
 from __future__ import annotations
@@ -15,13 +18,14 @@ import json
 import math
 import os
 import sys
+import tempfile
 import time
 from dataclasses import dataclass, field
 
 import numpy as np
 
 from .air import protocol as AP
-from .air.synth import build_air, cells_of
+from .air.synth import build_air, cells_of, cipher_arm
 
 BENCH_DIR = os.path.basename(os.path.dirname(os.path.abspath(__file__)))
 PROFILE_DEVICE_SB = 4       # superblocks of the device stretch
@@ -50,6 +54,27 @@ def load_reader(root: str, name: str):
     return mod.read
 
 
+def load_cell_module(root: str, config: dict):
+    """(module, limits) of the configuration's "cell_module", or (None,
+    None) without one."""
+    name = config.get("cell_module")
+    if name is None:
+        return None, None
+    spec = importlib.util.spec_from_file_location(
+        "tetra_bench.cells." + name, bench_path(root, "cells", name + ".py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    path = bench_path(root, "cells", name + ".json")
+    return mod, load_json(path) if os.path.exists(path) else {}
+
+
+def _call(module, name: str, *args, default=None):
+    """module.name(*args), or default where the module (or the call) is
+    absent."""
+    fn = getattr(module, name, None)
+    return default if fn is None else fn(*args)
+
+
 def cell_spec(root: str, workload: str) -> tuple[dict, dict, dict, dict]:
     """(manifest, cell, configuration, traffic) of a workload name."""
     manifest = load_json(os.path.join(root, "BENCHMARK.json"))
@@ -74,7 +99,8 @@ def cell_air(config: dict, traffic: dict, seed: int, device, ext: int):
     occupied[np.sort(pick)] = True
     air = build_air(C, cells_of(config["cells"]), occupied,
                     traffic["period_multiframes"], config["snr_db"],
-                    config["cfo_max_hz"], seed, device, ext=ext)
+                    config["cfo_max_hz"], seed, device, ext=ext,
+                    voice=traffic.get("voice"), crypto=config.get("crypto"))
     return air, occupied
 
 
@@ -144,17 +170,59 @@ class Feed:
 
 
 def _chan_state(rx, c: int) -> tuple:
+    """(slots, good blocks, lock losses, locked, MCC, MNC, colour code,
+    (multiframe, frame, timeslot) of the last slot) of carrier c."""
     ch = rx.fleet.chan(c)
     d = ch.disp
     return (int(ch.slot_count), int(ch.crc_oks), int(ch.lock_losses),
-            rx.locked(c), int(d.mcc), int(d.mnc), int(d.cc))
+            rx.locked(c), int(d.mcc), int(d.mnc), int(d.cc),
+            (int(ch.time.mn), int(ch.time.fn), int(ch.time.tn)))
+
+
+def _write_keystore(config: dict, seed: int):
+    """The seeded keystore of the configuration's `crypto` in a temporary
+    file; its path, or None without crypto."""
+    _, text = cipher_arm(config.get("crypto"), cells_of(config["cells"]),
+                         seed)
+    if text is None:
+        return None
+    fd, path = tempfile.mkstemp(prefix="tetra_bench_", suffix=".keys")
+    with os.fdopen(fd, "w") as f:
+        f.write(text)
+    return path
 
 
 def run_cell(root: str, workload: str, seed: int, seconds: float,
              trace: bool, t_start: float, device=None) -> tuple[dict, list]:
     """One run.  Returns (result line without its check list, checks:
     [(name, value, limit)], value None where nothing could be compared,
-    which fails)."""
+    which fails).
+
+    A configuration's cell module (load_cell_module) is called at four
+    points, each call optional: receiver_kwargs(config, traffic,
+    keystore_path) before the receiver is built, its dict merged into
+    TetraReceiver's arguments (keystore_path: the seeded keystore of the
+    configuration's `crypto` in a temporary file, else None);
+    attach(rx, air, seed) before the warm-up, returning a state (its
+    sinks run in the warm-up, the window and the traced stretches);
+    collect(state, rx) after the traced stretches, before the receiver is
+    freed, returning data off the card; checks(data, air, seed, limits)
+    after the freeing, returning (name, value, limit) triples, appended
+    to the harness's checks."""
+    spec = cell_spec(root, workload)
+    module, cell_limits = load_cell_module(root, spec[2])
+    keystore = None if module is None else _write_keystore(spec[2], seed)
+    try:
+        return _run_cell(root, workload, spec, seed, seconds, trace,
+                         t_start, device, module, cell_limits, keystore)
+    finally:
+        if keystore is not None:
+            os.remove(keystore)
+
+
+def _run_cell(root: str, workload: str, spec: tuple, seed: int,
+              seconds: float, trace: bool, t_start: float, device, module,
+              cell_limits, keystore) -> tuple[dict, list]:
     import torch
     from tetra_tpu_torch.rx.receiver import TetraReceiver
 
@@ -163,12 +231,14 @@ def run_cell(root: str, workload: str, seed: int, seconds: float,
     from .reference import truth
 
     marks = [time.perf_counter()]       # set-up by part, for stderr
-    manifest, _, config, traffic = cell_spec(root, workload)
+    manifest, _, config, traffic = spec
     limits = load_json(bench_path(root, "limits.json"))
     dev = torch.device(device if device is not None else "cuda")
     C = config["receiver"]["wideband"]
 
-    rx = TetraReceiver(**config["receiver"], fleet=True, device=dev)
+    extra = _call(module, "receiver_kwargs", config, traffic, keystore,
+                  default={})
+    rx = TetraReceiver(**config["receiver"], **extra, fleet=True, device=dev)
     marks.append(time.perf_counter())
     wb = rx._wb
     K, adv, hop = rx.wb_k, wb["advance"], wb["hop"]
@@ -177,6 +247,7 @@ def run_cell(root: str, workload: str, seed: int, seconds: float,
     marks.append(time.perf_counter())
     probes = Probes(rx, timed=trace)
     feed = Feed(traffic["feed"], rx, air, probes)
+    state = _call(module, "attach", rx, air, seed)
     marks.append(time.perf_counter())
     sb_air = K * adv / air.fs
     for _ in range(math.ceil(traffic["warmup_s"] / sb_air)):
@@ -234,6 +305,7 @@ def run_cell(root: str, workload: str, seed: int, seconds: float,
             cpu=True)
         run.spans = tracing.span_summary(ev)
         del ev
+    data = _call(module, "collect", state, rx)
 
     # the program's outputs leave the device; its state is freed
     fe = {n: tuple(t.double().cpu() for t in v)
@@ -242,7 +314,7 @@ def run_cell(root: str, workload: str, seed: int, seconds: float,
           for n, v in probes.demod.items()}
     rows = probes.rows
     probes.close()
-    del rx, feed, probes
+    del rx, feed, probes, state
     if dev.type == "cuda":
         torch.cuda.empty_cache()
 
@@ -274,43 +346,53 @@ def run_cell(root: str, workload: str, seed: int, seconds: float,
     checks.append(("dibit_errors", d_err if d_n else None,
                    limits["dibit_errors"]))
 
-    wrong = good = 0
+    wrong = good = chance = 0
     sent = truth.SentBlocks(air.records)
     notes = []
     for s_idx, parts in sorted(rows.items()):
         for r in parts:
-            w, g, bad = truth.block_errors(r, air.cell_of, sent,
-                                           air.period_slots)
-            wrong, good = wrong + w, good + g
+            w, g, bad, n = truth.block_errors(r, air.cell_of, sent,
+                                              air.period_slots)
+            wrong, good, chance = wrong + w, good + g, chance + n
             notes += [f"superblock {s_idx}: " + truth.explain_row(
                 r, i, air.cell_of, sent, air.period_slots)
                 for i in bad[:max(0, 8 - len(notes))]]
     checks.append(("wrong_blocks", wrong if good else None,
                    limits["wrong_blocks"]))
 
+    # the blocks expected of the slots each carrier consumed in the window
+    # (at least the window's slots less one), from the slot after its
+    # last one before the window, by the slot's record
     slots_nominal = int(run.air_s * AP.SYMBOL_RATE / AP.SYM_PER_TS) - 1
-    attempted = delivered = 0
+    attempted = failed = surplus = 0
     states = []
     for c in range(C):
-        (s0, ok0, ll0, *_), (s1, ok1, ll1, locked, mcc, mnc, cc) = \
+        (s0, ok0, ll0, *_, t0), (s1, ok1, ll1, locked, mcc, mnc, cc, _) = \
             before[c], after[c]
         states.append((locked, mcc, mnc, cc, ll1 - ll0))
         if occupied[c]:
-            attempted += 3 * max(s1 - s0, slots_nominal)
-            delivered += ok1 - ok0
-    failed = max(0, attempted - delivered)
-    for c in np.nonzero(occupied)[0]:
-        slots, oks = after[c][0] - before[c][0], after[c][1] - before[c][1]
-        if oks != 3 * slots and len(notes) < 16:
-            notes.append(f"carrier {c} (cell {air.cell_of[c]}, CFO "
-                         f"{air.cfo_hz[c]:.1f} Hz): {slots} slots, {oks} "
-                         f"good blocks, {after[c][2] - before[c][2]} lock "
-                         f"losses")
+            p0 = int(truth.slot_of(*t0, air.period_slots)) + 1
+            exp = truth.expected_blocks(sent, air.cell_of[c], p0,
+                                        max(s1 - s0, slots_nominal))
+            attempted += exp
+            failed += max(0, exp - (ok1 - ok0))
+            surplus += max(0, ok1 - ok0 - exp)
+            if ok1 - ok0 != exp and len(notes) < 16:
+                notes.append(f"carrier {c} (cell {air.cell_of[c]}, CFO "
+                             f"{air.cfo_hz[c]:.1f} Hz): {s1 - s0} slots, "
+                             f"{ok1 - ok0} good blocks of {exp} expected, "
+                             f"{ll1 - ll0} lock losses")
+    if sent.speech.max() >= 0:
+        print(f"chance CRC passes on speech: {surplus} good blocks over "
+              f"the expected (counters, window), {chance} in the captured "
+              f"superblocks", file=sys.stderr)
     checks.append(("missed_blocks", failed if attempted else None,
                    limits["missed_blocks"]))
     checks.append(("display_errors",
                    truth.display_errors(states, air.cell_of, air.cells),
                    limits["display_errors"]))
+    checks += [tuple(ch) for ch in _call(module, "checks", data, air, seed,
+                                         cell_limits, default=[])]
     correct = all(v is not None and v <= lim for _, v, lim in checks)
     if not correct:
         for line in notes:

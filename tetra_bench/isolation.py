@@ -14,8 +14,10 @@ import sys
 JAX_NAMES = ("jax", "jaxlib", "flax", "tetra_tpu")
 PROGRAM = "tetra_tpu_torch"
 BENCH = os.path.dirname(os.path.abspath(__file__))
-# the reference that decides `correct`, and the air it judges against
-REFERENCE_PACKAGES = ("reference", "air")
+# the reference that decides `correct`, the air it judges against, and
+# the cell modules whose checks add to it (they reach the program only
+# through the receiver the harness hands them)
+REFERENCE_PACKAGES = ("reference", "air", "cells")
 
 
 def forbidden_modules(modules=None) -> list:
@@ -40,21 +42,31 @@ def _imports(path: str) -> set:
     return out
 
 
-def reference_imports() -> list:
-    """Every module the reference's and the air's sources import (their
-    relative imports within the benchmark followed), by top-level name,
-    that is the program, the JAX package or JAX."""
+def reference_imports(bench: str = BENCH) -> list:
+    """Every module that the sources of the reference, the air and the
+    cell modules (cells/, where there is one) import, anywhere in a file,
+    that is the program, the JAX package or JAX, or a module of the
+    benchmark (`tetra_bench` here) outside those three packages."""
+    own = os.path.basename(bench)
     bad = set()
     for pkg in REFERENCE_PACKAGES:
-        d = os.path.join(BENCH, pkg)
+        d = os.path.join(bench, pkg)
+        if not os.path.isdir(d):
+            continue
         for name in sorted(os.listdir(d)):
             if not name.endswith(".py"):
                 continue
             for mod in _imports(os.path.join(d, name)):
-                if mod.startswith("..") and mod.lstrip(".").split(".")[0] \
-                        not in REFERENCE_PACKAGES + ("",):
-                    bad.add("tetra_bench." + mod.lstrip("."))
-                top = mod.lstrip(".").split(".")[0]
-                if not mod.startswith(".") and top in JAX_NAMES + (PROGRAM,):
+                parts = mod.lstrip(".").split(".")
+                if mod.startswith(".."):
+                    sub = parts[0]
+                elif not mod.startswith(".") and parts[0] == own:
+                    sub = parts[1] if len(parts) > 1 else ""
+                else:
+                    sub = None
+                if sub is not None and sub not in REFERENCE_PACKAGES:
+                    bad.add(own + "." + sub if sub else own)
+                if not mod.startswith(".") and parts[0] in JAX_NAMES + (
+                        PROGRAM,):
                     bad.add(mod)
     return sorted(bad)

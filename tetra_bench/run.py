@@ -44,6 +44,11 @@ def main(argv=None) -> int:
     if ROOT not in sys.path:
         sys.path.insert(0, ROOT)
 
+    from tetra_bench.isolation import forbidden_modules, reference_imports
+    bad = reference_imports()
+    if bad:
+        print(f"the reference imports {', '.join(bad)}", file=sys.stderr)
+        return 3
     from tetra_bench.harness import cell_spec
     manifest, cell, _, _ = cell_spec(ROOT, args.workload)
     import torch
@@ -54,11 +59,6 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     from tetra_bench.harness import run_cell
-    from tetra_bench.isolation import forbidden_modules, reference_imports
-    bad = reference_imports()
-    if bad:
-        print(f"the reference imports {', '.join(bad)}", file=sys.stderr)
-        return 3
     result, checks = run_cell(ROOT, args.workload, args.seed, args.seconds,
                               bool(args.trace), T_START)
     bad = forbidden_modules()

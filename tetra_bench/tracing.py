@@ -7,11 +7,13 @@ of a traced run:
   pace): the card's busy seconds, the union of every kernel, copy and
   memset interval, against the stretch's wall on the host clock; and
   the device operations that took the most time;
-- a span stretch (CPU and CUDA): every kernel is given to the harness
+- a span stretch (CPU and CUDA): every kernel is given to each harness
   range (probes' "bench.<layer>" record_function ranges) open on the
   host when its launch was issued, so a layer's device time counts
-  whatever kernels it launches under whatever names; and the card's
-  idle gaps are given to the innermost range open at their midpoint.
+  whatever kernels it launches under whatever names; by the same rule
+  to each of the program's own ranges ("tetra.<span>", opened by
+  tetra_tpu_torch.spans while a profiler records); and the card's idle
+  gaps are given to the innermost harness range open at their midpoint.
 """
 
 from __future__ import annotations
@@ -68,8 +70,9 @@ def profile(run, cpu: bool) -> tuple[list, float]:
 
 
 def device_summary(events: list, wall_s: float, top: int = 10) -> dict:
-    """Busy seconds (union of device intervals), the window's wall, and
-    the device operations by total seconds."""
+    """Busy seconds (union of device intervals), the window's wall, the
+    `top` device operations by total seconds (device_ops), and every
+    device operation's total seconds by name (device_op_s)."""
     dev = [e for e in events if e.get("cat") in DEVICE_CATS]
     busy = sum(b - a for a, b in _union(
         [(e["ts"], e["ts"] + e["dur"]) for e in dev])) * 1e-6
@@ -77,15 +80,40 @@ def device_summary(events: list, wall_s: float, top: int = 10) -> dict:
     for e in dev:
         by_name[e["name"][:160]] += e["dur"] * 1e-6
     ops = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
-    return dict(busy_s=busy, window_s=wall_s, device_ops=[list(o) for o in ops])
+    return dict(busy_s=busy, window_s=wall_s, device_ops=[list(o) for o in ops],
+                device_op_s=dict(by_name))
+
+
+def _ranges(events: list, prefix: str) -> list:
+    return sorted((e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
+                  if e.get("cat") == "user_annotation"
+                  and e["name"].startswith(prefix))
+
+
+def _device_by_range(spans: list, dev: list, launch_ts: dict) -> tuple:
+    """(device seconds, calls) by range name: each device operation counts
+    to every range open on the host when its launch was issued."""
+    starts = [s[0] for s in spans]
+    calls = defaultdict(int)
+    for _, _, name in spans:
+        calls[name] += 1
+    dev_s = defaultdict(float)
+    for e in dev:
+        t = launch_ts.get(e.get("args", {}).get("correlation"))
+        if t is None:
+            continue
+        for a, b, name in spans[:bisect.bisect_right(starts, t)]:
+            if a <= t <= b:
+                dev_s[name] += e["dur"] * 1e-6
+    return dict(dev_s), dict(calls)
 
 
 def span_summary(events: list, top: int = 10) -> dict:
-    """Device seconds and calls by harness range, and the card's idle gaps
-    inside the window by the innermost range open on the host."""
-    spans = sorted((e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
-                   if e.get("cat") == "user_annotation"
-                   and e["name"].startswith("bench."))
+    """Device seconds and calls by harness range (span_device_s,
+    span_calls) and by the program's range (program_device_s,
+    program_calls), and the card's idle gaps inside the window by the
+    innermost harness range open on the host."""
+    spans = _ranges(events, "bench.")
     starts = [s[0] for s in spans]
     launch_ts = {e["args"]["correlation"]: e["ts"] for e in events
                  if e.get("cat") in LAUNCH_CATS
@@ -98,18 +126,10 @@ def span_summary(events: list, top: int = 10) -> dict:
                 best = (a, name)
         return best[1] if best else "harness"
 
-    calls = defaultdict(int)
-    for _, _, name in spans:
-        calls[name] += 1
-    dev_s = defaultdict(float)
     dev = [e for e in events if e.get("cat") in DEVICE_CATS]
-    for e in dev:
-        t = launch_ts.get(e.get("args", {}).get("correlation"))
-        if t is None:
-            continue
-        for a, b, name in spans[:bisect.bisect_right(starts, t)]:
-            if a <= t <= b:
-                dev_s[name] += e["dur"] * 1e-6
+    dev_s, calls = _device_by_range(spans, dev, launch_ts)
+    prog_s, prog_calls = _device_by_range(_ranges(events, "tetra."), dev,
+                                          launch_ts)
     window = [s for s in spans if s[2] == "bench.window"]
     gaps = defaultdict(float)
     if window:
@@ -121,5 +141,6 @@ def span_summary(events: list, top: int = 10) -> dict:
             if b > a:
                 gaps[innermost((a + b) / 2)] += (b - a) * 1e-6
     idle = sorted(gaps.items(), key=lambda kv: -kv[1])[:top]
-    return dict(span_device_s=dict(dev_s), span_calls=dict(calls),
+    return dict(span_device_s=dev_s, span_calls=calls,
+                program_device_s=prog_s, program_calls=prog_calls,
                 idle_gaps=[list(g) for g in idle])
