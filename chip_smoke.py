@@ -53,7 +53,10 @@ Phases, each printing one line (any failure raises and exits non-zero):
    counting both-halves steals); every frame handed to the codec without
    a bad-frame flag equal to the sent one (on encrypted carriers after
    decryption, once the receiver has both SYSINFO arms, and different
-   from it on air); bad frames <= 2%; a stolen-half decode that matched;
+   from it on air; a stolen half's frame on the encrypted carriers XORed
+   with the slot's keystream bits 137-273 as the pipeline's cipher state
+   made them, as the fixture sends it clear where the pipeline decrypts
+   it); bad frames <= 2%; a stolen-half decode that matched;
    480 samples a decoded slot, equal to a fresh AcelpDecoder fed the same
    frames; decrypted SDUs on carriers 4-7; the decode's tensors on the
    card.  Its line (printed after the profiler windows, which also count
@@ -146,6 +149,27 @@ Phases, each printing one line (any failure raises and exits non-zero):
    rows print as `kernel_wide:` lines, and the kernels line carries
    launches_wide (slice_wide's receivers) and each kernel's rows at the
    new shapes.
+11. slice_voice_fleet (after slice_voice): the fleet receiver with its
+   voice monitor, TetraReceiver(wideband=256, t50=6400, fleet=True,
+   wb_k=8, voice=True, keystore=...), on 6 s of voice_cell_air's air at
+   256 carriers (FLEET_VOICE_SECONDS; voice on timeslot 2, steals of both
+   kinds, cells 4-7 TEA1 with the keys held), staged superblocks after a
+   1.5 s warm-up and take_voice() after each.  Gates: the fleet slice's
+   three; the speech trellis kernel launched once a timed superblock,
+   with one voice block each; every delivered row a voice slot or
+   surviving half the air sent on its carrier's cell, once, on timeslot
+   2, DECRYPTED on cells 4-7 and CLEAR elsewhere; its frames without a
+   bad-frame flag the sent plaintext (a half on cells 4-7, which the
+   fixture sends clear, XORed with the sender's keystream bits 137-273
+   again, and different from it as delivered); no voice row the air sent
+   missing between a carrier's first and last delivered row; voice on >
+   90% of the carriers; bad frames <= 2%; the PCM of every call on
+   carriers 0-15 equal to a fresh AcelpDecoder's; and the kernel bit for
+   bit against its plain version on the last superblock's rows (~5,000
+   rows x 112 steps at one voice timeslot).  It prints rt_margin, the
+   rows, halves and bad frames, and the kernel's row (`kernel:`, with
+   its ms, plain_ms and bound), which the kernels line carries with its
+   launches.
 
 A line `timing:` before the kernel lines gives each phase's wall time
 (the profiler windows at the end included) and the total.
@@ -197,6 +221,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -217,11 +242,16 @@ from tetra_tpu_torch.rx import lower_mac as LM
 from tetra_tpu_torch.rx import receiver as R
 from tetra_tpu_torch.rx.hostpool import MacPool
 from tetra_tpu_torch.rx.receiver import TetraReceiver
-from tetra_tpu_torch.tx.wideband import (MARGINAL_SNR_DB, cell_air,
+from tetra_tpu_torch.ops import speech_kernel as SK
+from tetra_tpu_torch.rx.tdma import TdmaTime
+from tetra_tpu_torch.tx.wideband import (MARGINAL_SNR_DB, _cell_config,
+                                         _tx_crypto, cell_air,
                                          cell_air_device, cell_keystore,
                                          heterogeneous_fleet_iq,
                                          staged_windows, voice_cell_air)
 from tetra_tpu_torch.voice import channel as VCH
+from tetra_tpu_torch.voice import monitor as VM
+from tetra_tpu_torch.voice import speech_batch as SB
 from tetra_tpu_torch.voice.acelp import AcelpDecoder
 from tetra_tpu_torch.voice.pipeline import VoicePipeline
 
@@ -237,6 +267,8 @@ ENCRYPTED = (4, 5, 6, 7)              # TEA1 cells of the voice slice
 VOICE_TS = 2                          # the voice slice's traffic timeslot
 MIN_VOICE_SHARE = 0.8                 # voice slots decoded after warm-up
 MAX_BAD_SHARE = 0.02                  # bad frames among decoded slots
+FLEET_VOICE_SECONDS = 6.0             # air the fleet voice slice is fed
+REPLAY_CARRIERS = 16                  # carriers whose calls' PCM is replayed
 MODES_SECONDS = {"ff": 3.6, "exact": 2.0}   # air each mode's receiver is fed
 MODES_BLOCK = 4096                    # the CLI's --block
 TOL_MODES_CHANNELS = 0.99  # card vs CPU: share of identical dibits/valid
@@ -352,12 +384,14 @@ REPLACES = {
     "K2 mm_costas": "tetra_tpu/ops/mm_pallas.py:628",
     "K3 fold_dft_resample": "tetra_tpu/ops/chan_pallas.py:176",
     "K4 fold_dft": "tetra_tpu/ops/chan_pallas.py:218",
+    "speech_trellis": "tetra_tpu/voice/channel.py:420",
 }
 SOURCES = {
     "K1 agc_fll_rrc": "tetra_tpu_torch/csrc/agc_fll_rrc.cu",
     "K2 mm_costas": "tetra_tpu_torch/csrc/mm_costas.cu",
     "K3 fold_dft_resample": "tetra_tpu_torch/csrc/chan.cu",
     "K4 fold_dft": "tetra_tpu_torch/csrc/chan.cu",
+    "speech_trellis": "tetra_tpu_torch/csrc/speech_trellis.cu",
 }
 
 
@@ -1412,14 +1446,21 @@ def phase_slice_voice(dev, nf: dict, n_ch: int = N_CH,
                                        encrypted=ENCRYPTED)
         stores = {c: KeyStore.load(keys) for c in ENCRYPTED}
     fixture_s = time.perf_counter() - t0
-    pipes, cipher, events0, devices, rxs = {}, {}, {}, set(), []
+    pipes, cipher, half_ks, events0, devices, rxs = {}, {}, {}, {}, set(), []
 
-    def spy_crypto(cs, log):
+    def spy_crypto(cs, log, ks_log):
         """Record the frames each voice decryption starts from, and whether
         the cipher context was whole by then: the SYSINFO PDUs of both arms
-        (the CCK id and the hyperframe number) received."""
+        (the CCK id and the hyperframe number) received; and each slot's
+        keystream as the cipher state made it."""
         arms = set()
         decrypt, update = cs.decrypt_voice_bits, cs.update_from_sysinfo
+        keystream = cs.keystream_bits
+
+        def spy_keystream(key, t, num_bits, direction=0):
+            out = keystream(key, t, num_bits, direction)
+            ks_log[(t.mn, t.fn, t.tn)] = out
+            return out
 
         def spy_update(sid):
             arms.add(bool(sid.cck_valid_no_hf))
@@ -1430,6 +1471,7 @@ def phase_slice_voice(dev, nf: dict, n_ch: int = N_CH,
             return decrypt(t, frames)
         cs.update_from_sysinfo = spy_update
         cs.decrypt_voice_bits = spy_decrypt
+        cs.keystream_bits = spy_keystream
 
     def attach(rx):
         rxs.append(rx)
@@ -1437,7 +1479,8 @@ def phase_slice_voice(dev, nf: dict, n_ch: int = N_CH,
             cs = None
             if c in ENCRYPTED:
                 cs = CryptoState(store=stores[c])
-                spy_crypto(cs, cipher.setdefault(c, {}))
+                spy_crypto(cs, cipher.setdefault(c, {}),
+                           half_ks.setdefault(c, {}))
                 rx.mac[c].upper.crypto_state = cs
                 rx.mac[c].upper.events_enabled = True
             pipes[c] = RecordingPipeline(decoder=SpyDecoder(),
@@ -1498,6 +1541,15 @@ def phase_slice_voice(dev, nf: dict, n_ch: int = N_CH,
                   f"a {want_kind} slot")
             if b:
                 continue
+            if kind == "frame" and c in ENCRYPTED:
+                # the fixture sends a first-half steal's surviving frame in
+                # the clear; the pipeline, once it holds the key, XORs the
+                # slot's keystream bits 137-273 off it (as the benchmark's
+                # air enciphers it), so the frame XORed with them again is
+                # the sent one
+                ks = half_ks[c].get(key)
+                if ks is not None:
+                    frames = frames ^ ks[137:]
             if kind == "slot" and c in ENCRYPTED:
                 on_air, context = cipher[c][key]
                 check(not np.array_equal(on_air, want),
@@ -1539,6 +1591,184 @@ def phase_slice_voice(dev, nf: dict, n_ch: int = N_CH,
                slice_nonfleet={k: nf.get(k) for k in (
                    "wideband_msps", "rt_margin", "cycle_wall_ms")})
     return out
+
+
+def speech_trellis_work(rows: int, steps: int) -> dict:
+    """The speech trellis kernel's bound: its soft symbols (3 float32 a
+    step) and truncation flags read once, its bits written once; per row
+    and step 8 branch metrics (2 additions each), 16 add-compare-selects
+    (3 operations each) and a traceback step (1)."""
+    return bound(rows * steps * 3 * 4 + rows + rows * steps,
+                 rows * steps * (8 * 2 + 16 * 3 + 1))
+
+
+def replay_calls(blocks: list, carriers) -> int:
+    """Check the PCM of every call on `carriers` over `blocks` (all of the
+    receiver's voice blocks, oldest first) against a fresh AcelpDecoder a
+    call, made on its first synthesised row and fed its frames in order
+    (a half: 240 samples of silence, then its frame; a withheld row: 480
+    samples of silence, the decoder untouched).  Returns the rows
+    checked."""
+    decs, n = {}, 0
+    for b in blocks:
+        for i in np.nonzero(np.isin(b.carrier, carriers))[0]:
+            call = (int(b.carrier[i]), int(b.timeslot[i]))
+            if b.crypt[i] == VM.WITHHELD:
+                want = np.zeros(480, np.int16)
+            else:
+                dec = decs.setdefault(call, AcelpDecoder())
+                f, bfi = b.frames[i], b.bfi[i]
+                first = (np.zeros(240, np.int16) if b.kind[i] == VM.HALF
+                         else dec.decode_frame(f[0], bool(bfi[0])))
+                want = np.concatenate([first,
+                                       dec.decode_frame(f[1], bool(bfi[1]))])
+            check(np.array_equal(b.pcm[i], want),
+                  f"call {call} at {tuple(b.time[i])}: PCM differs from a "
+                  f"fresh decoder's")
+            n += 1
+    return n
+
+
+def phase_slice_voice_fleet(dev) -> tuple[dict, dict]:
+    """The fleet receiver with its voice monitor, TetraReceiver(wideband=
+    256, t50=6400, fleet=True, wb_k=8, voice=True, keystore=...), on
+    FLEET_VOICE_SECONDS of voice_cell_air's air at 256 carriers (voice on
+    timeslot 2, steals of both kinds, cells 4-7 TEA1 with the keys held):
+    staged superblocks after a 1.5 s warm-up, take_voice() after each.
+    Returns the phase's line and the speech trellis kernel's row."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        keys = os.path.join(tmp, "keys.txt")
+        with open(keys, "w") as f:
+            f.write(cell_keystore(ENCRYPTED))
+        wide, records = voice_cell_air(N_CH, FLEET_VOICE_SECONDS, N_CELLS,
+                                       keystore=keys, encrypted=ENCRYPTED)
+        rx = TetraReceiver(wideband=N_CH, t50=T50, fleet=True, wb_k=WB_K,
+                           device=dev, voice=True, keystore=keys)
+        sender = {i: _tx_crypto(KeyStore.load(keys), _cell_config(i))
+                  for i in ENCRYPTED}
+    staged = staged_windows(wide, T50 * N_CH // 2, (T50 - 1) * N_CH // 2
+                            + N_CH * CH.TAPS_PER_BRANCH, WB_K, dev)
+    del wide
+    fixture_s = time.perf_counter() - t0
+    fs = N_CH * 25_000
+    sb_adv = WB_K * rx._wb["advance"]
+    warm = int(WARM_SECONDS * fs / sb_adv) + 1
+    check(len(staged) - warm >= 2, f"{len(staged)} superblocks, {warm} "
+          f"warm-up")
+    trellis, last = SK.trellis, {}
+
+    def spy(x, truncate):
+        last["x"], last["truncate"] = x, truncate
+        return trellis(x, truncate)
+
+    # the batched decode reaches the kernel through its module reference
+    SB.speech_kernel = SimpleNamespace(trellis=spy)
+    try:
+        blocks = []
+        for s in range(warm):
+            rx.process_wideband_staged(*staged[s])
+            blocks += rx.take_voice()
+        ok0 = sum(rx.crc_counts(c)[0] for c in range(N_CH))
+        fail0 = sum(rx.crc_counts(c)[1] for c in range(N_CH))
+        n_warm_blocks = len(blocks)
+        torch.cuda.synchronize()
+        trellis.launches = 0
+        walls = []
+        for s in range(warm, len(staged)):
+            ts = time.perf_counter()
+            rx.process_wideband_staged(*staged[s])
+            blocks += rx.take_voice()
+            walls.append(time.perf_counter() - ts)
+        launches = trellis.launches
+    finally:
+        SB.speech_kernel = SK
+    del staged
+    timed = blocks[n_warm_blocks:]
+    gates = fleet_gates(rx, ok0, fail0, "slice_voice_fleet")
+    check(len(timed) == len(walls) and launches == len(walls),
+          f"speech trellis launched {launches} times, {len(timed)} voice "
+          f"blocks, over {len(walls)} superblocks")
+
+    # every delivered row against the air's plaintext, by its call's cell
+    truth = [voice_truth(r, 0, len(r)) for r in records]
+    index = [{(r.time.mn, r.time.fn, r.time.tn): j
+              for j, r in enumerate(recs)} for recs in records]
+    ks_cache, seen = {}, {}
+    n_rows = n_half = n_bad = 0
+    for b in timed:
+        for i in range(len(b)):
+            c = int(b.carrier[i])
+            cell = c % N_CELLS
+            key = tuple(int(v) for v in b.time[i, 1:4])
+            want = truth[cell].get(key)
+            check(want is not None and int(b.timeslot[i]) == VOICE_TS,
+                  f"carrier {c} {key}: voice where none was sent")
+            half = b.kind[i] == VM.HALF
+            check(want[0] == ("frame" if half else "slot"),
+                  f"carrier {c} {key}: a {'half' if half else 'slot'} row "
+                  f"of a {want[0]} record")
+            check(b.crypt[i] == (VM.DECRYPTED if cell in ENCRYPTED
+                                 else VM.CLEAR),
+                  f"carrier {c} {key}: crypt {b.crypt[i]} after warm-up")
+            j = index[cell][key]
+            check(j not in seen.setdefault(c, set()),
+                  f"carrier {c} {key}: delivered twice")
+            seen[c].add(j)
+            n_rows += 1
+            n_half += int(half)
+            if b.bfi[i, 1] or (not half and b.bfi[i, 0]):
+                n_bad += 1
+                continue
+            got = b.frames[i, 1] if half else b.frames[i]
+            if half and cell in ENCRYPTED:
+                # the fixture sends the surviving frame clear; the monitor
+                # XORs the slot's keystream bits 137-273 off it, so XORed
+                # with the sender's keystream again it is the sent frame
+                if (key, cell) not in ks_cache:
+                    ks_cache[key, cell] = sender[cell].keystream_bits(
+                        sender[cell].cck, TdmaTime(mn=key[0], fn=key[1],
+                                                   tn=key[2]), 274)
+                got = got ^ ks_cache[key, cell][137:]
+                check(not np.array_equal(b.frames[i, 1], want[1]),
+                      f"carrier {c} {key}: half frame not decrypted")
+            check(np.array_equal(got, want[1]),
+                  f"carrier {c} {key}: codec frames differ from the sent")
+    # between a carrier's first and last delivered row, every voice row
+    # the air sent was delivered
+    missed = 0
+    for c, got in seen.items():
+        lo, hi = min(got), max(got)
+        sent = {index[c % N_CELLS][k] for k in truth[c % N_CELLS]}
+        missed += len({j for j in sent if lo <= j <= hi} - got)
+    check(missed == 0, f"{missed} voice rows sent and not delivered")
+    check(len(seen) > 0.9 * N_CH, f"voice on {len(seen)} of {N_CH} "
+          f"carriers")
+    check(n_half > 0, "no surviving half delivered")
+    check(n_bad <= MAX_BAD_SHARE * n_rows,
+          f"{n_bad} bad frames in {n_rows} rows")
+    replayed = replay_calls(blocks, np.arange(REPLAY_CARRIERS))
+
+    # the kernel against its plain version on the last superblock's rows
+    x, tr = last["x"], last["truncate"]
+    R_, T_ = x.shape[0], x.shape[1]
+    got = trellis(x, tr)
+    check(torch.equal(got, SK.trellis_plain(x, tr)),
+          f"speech trellis differs from its plain version at {R_} x {T_}")
+    row = dict(name="speech_trellis", rows=R_, steps=T_, max_abs_err=0.0,
+               ms=median_ms(lambda: trellis(x, tr), 20),
+               plain_ms=median_ms(lambda: SK.trellis_plain(x, tr), 1, 3),
+               **speech_trellis_work(R_, T_))
+    sb_air = sb_adv / fs
+    out = dict(channels=N_CH, superblocks=len(walls), fixture_s=fixture_s,
+               rt_margin=sb_air / float(np.mean(walls)),
+               sb_air_ms=sb_air * 1e3,
+               sb_wall_ms=float(np.mean(walls)) * 1e3, **gates,
+               voice_rows=n_rows, halves=n_half, bad_frames=n_bad,
+               carriers_with_voice=len(seen), missed=missed,
+               pcm_rows_replayed=replayed, trellis_launches=launches,
+               trellis_rows=R_)
+    return out, row
 
 
 def decode_slot_device_ops(dev) -> dict:
@@ -2709,6 +2939,10 @@ def main() -> None:
     lap("slice_wide")
     voice = phase_slice_voice(dev, nf)
     lap("slice_voice")
+    voice_fleet, speech_row = phase_slice_voice_fleet(dev)
+    print(f"slice_voice_fleet: gpu=[{gpu}] " + json.dumps(voice_fleet),
+          flush=True)
+    lap("slice_voice_fleet")
     modes, warm = phase_slice_modes(dev, wide)
     lap("slice_modes")
     del wide
@@ -2727,6 +2961,7 @@ def main() -> None:
         laps, total=time.perf_counter() - t_start)), flush=True)
     for r in rows:
         print("kernel: " + json.dumps(r), flush=True)
+    print("kernel: " + json.dumps(speech_row), flush=True)
     for r in wide_rows:
         print("kernel_wide: " + json.dumps(r), flush=True)
     line = kernel_line(rows, wide_res["launches"], lambda r: dict(
@@ -2748,6 +2983,12 @@ def main() -> None:
                           bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                           max_abs_err=r["max_abs_err"])
                      for r in wide_rows if r["name"] == k["name"]]
+    n_sb = voice_fleet["superblocks"]
+    line["kernels"] += kernel_line(
+        [speech_row], {speech_row["name"]: 0}, lambda r: dict(
+            launches=voice_fleet["trellis_launches"],
+            launches_per_superblock=voice_fleet["trellis_launches"] / n_sb,
+            rows=r["rows"], steps=r["steps"]))["kernels"]
     print(gpu)
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

@@ -9,7 +9,8 @@ held to 1e-3); with --cfo (and no --snr, so 200 dB of noise) the same.
 tetra_rx: the summary JSON (lock, MCC/MNC/CC, CRC tallies per channel)
 equals the reference CLI's for each --demod, the wideband host path,
 --mac-workers, --state resume and --metrics; --mode 1 sends the same bits; --voice with
---keystore writes the same PCM."""
+--keystore writes the same PCM.  --fleet --voice --keystore writes each
+call's PCM through the fleet's voice monitor."""
 
 import json
 import os
@@ -157,6 +158,56 @@ def test_tetra_rx_voice_keystore_matches_jax(caps):
     assert s_a == s_b and s_a[0]["locked"]
     assert llc_a == llc_b and len(llc_a) > 20
     assert len(pcm_a) >= 480 * 10 and np.array_equal(pcm_a, pcm_b)
+
+
+def test_tetra_rx_fleet_voice_keystore_writes_each_call(caps, tmp_path,
+                                                       monkeypatch):
+    """--fleet --voice --keystore: the fleet's voice monitor decrypts the
+    TEA1 cell's call on timeslot 2 and writes it to <name>.c0.t2<ext>, the
+    PCM of an in-process fleet receiver's take_voice() fed the same
+    blocks, every slot decrypted once the cipher state is known and none
+    flagged bad; --keystore without --voice is refused."""
+    import torch
+    from tetra_tpu_torch.apps.tetra_rx import load_iq
+    from tetra_tpu_torch.rx.receiver import TetraReceiver
+    from tetra_tpu_torch.voice import monitor as M
+    monkeypatch.setenv("TETRA_FLEET_THREADS", "1")
+    # five multiframes: the SYSINFO PDUs bring the CCK id and the
+    # hyperframe in turn, after which every slot decrypts
+    cap = str(tmp_path / "voice.cf32")
+    run("tetra_tpu_torch", "tetra_tx", cap, "--slots", 360, "--voice-tn", 2,
+        "--keystore", caps["keys"], "--snr", 30)
+    out = str(tmp_path / "calls" / "calls.s16")
+    os.makedirs(tmp_path / "calls")
+    summary = last_json(run("tetra_tpu_torch", "tetra_rx", cap, "--fleet",
+                            "--voice", out, "--keystore", caps["keys"],
+                            "--status-every", 100))
+    assert summary[0]["locked"] and summary[0]["mnc"] == 1234
+    assert os.listdir(tmp_path / "calls") == ["calls.c0.t2.s16"]
+    got = np.fromfile(tmp_path / "calls" / "calls.c0.t2.s16", np.int16)
+    rx = TetraReceiver(1, events=False, fleet=True, voice=True,
+                       keystore=caps["keys"], device="cpu")
+    iq = load_iq(cap)
+    blocks = []
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        for i in range(len(iq) // 4096):
+            rx.process(iq[None, i * 4096:(i + 1) * 4096])
+            blocks += rx.take_voice()
+    finally:
+        torch.set_num_threads(threads)
+    rows = [(b.crypt[i], b.bfi[i].any(), b.pcm[i]) for b in blocks
+            for i in range(len(b))]
+    assert len(rows) >= 50
+    assert np.array_equal(got, np.concatenate([p for _, _, p in rows]))
+    crypt = [c for c, _, _ in rows]
+    assert crypt[-40:] == [M.DECRYPTED] * 40
+    assert not any(bad for c, bad, _ in rows if c == M.DECRYPTED)
+    assert np.abs(got[-4800:]).max() > 100
+    res = run("tetra_tpu_torch", "tetra_rx", cap, "--fleet",
+              "--keystore", caps["keys"], check=False)
+    assert res.returncode != 0 and "--voice" in res.stderr
 
 
 def test_tetra_rx_state_resume_matches_jax(caps):

@@ -440,3 +440,33 @@ def test_pipelined_host_feed_matches_sync_on_card(dev):
     assert_same_packed(spy_p.packed, spy_t.packed)
     assert_same_decode(pcie, tun)
     assert pcie.fleet.state_bytes() == tun.fleet.state_bytes()
+
+
+@pytest.mark.parametrize("R, T", [(1, 112), (129, 112), (300, 38)])
+def test_speech_trellis_kernel_matches_plain(dev, R, T):
+    """The speech trellis kernel against its plain version: noisy soft
+    rows (quantised to 1/16 within +-2, some punctured), half of them
+    truncated, bit for bit; and the voice monitor's whole batched decode
+    of slots and halves, card against CPU."""
+    from tetra_tpu_torch.ops import speech_kernel as SK
+    from tetra_tpu_torch.voice import channel as vc
+    from tetra_tpu_torch.voice.speech_batch import decode_speech
+    rng = np.random.default_rng(R + T)
+    x = np.clip(np.round((rng.choice([-1.0, 1.0], (R, T, 3))
+                          + rng.normal(0, 0.8, (R, T, 3))) * 16), -32, 32) / 16
+    x[rng.random((R, T, 3)) < 0.3] = 0.0
+    x = torch.from_numpy(x.astype(np.float32))
+    trunc = torch.from_numpy(rng.random(R) < 0.5)
+    n = SK.trellis.launches
+    got = SK.trellis(x.to(dev), trunc.to(dev)).cpu()
+    assert SK.trellis.launches == n + 1
+    assert torch.equal(got, SK.trellis_plain(x, trunc))
+    frames = rng.integers(0, 2, (R, 2, 137)).astype(np.uint8)
+    slots = np.stack([vc.encode_slot(f.reshape(-1)) for f in frames])
+    halves = np.stack([vc.encode_half_slot(f[1]) for f in frames[:T]])
+    flip = lambda b: 1.0 - 2.0 * (b ^ (rng.random(b.shape) < 0.03))
+    soft = torch.from_numpy(flip(slots).astype(np.float32))
+    hsoft = torch.from_numpy(flip(halves).astype(np.float32))
+    on_card = [t.cpu() for t in decode_speech(soft.to(dev), hsoft.to(dev))]
+    for a, b in zip(on_card, decode_speech(soft, hsoft)):
+        assert torch.equal(a, b)

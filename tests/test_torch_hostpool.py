@@ -32,6 +32,7 @@ from tetra_tpu_torch.voice.pipeline import VoicePipeline
 from tests.test_hostpool import _mk_streams
 from tests.test_torch_mac import _plain
 from tests.test_torch_receiver_channel import one_torch_thread  # noqa: F401
+from tests.test_torch_receiver_voice import decrypt_halves
 
 FEED = 4096
 
@@ -67,7 +68,8 @@ def _inprocess(bits, jax: bool = False, voice: bool = False,
                 JCryptoState(JKeyStore.load(keystore)) if jax else
                 TCryptoState(TKeyStore.load(keystore)))
         if voice:
-            vp = JPipeline() if jax else VoicePipeline(device="cpu")
+            vp = decrypt_halves(JPipeline()) if jax \
+                else VoicePipeline(device="cpu")
             vp.crypto_state = m.upper.crypto_state
             m.voice_cb = vp
             pipes.append(vp)
@@ -160,7 +162,8 @@ def test_pool_voice_audio_matches_jax():
 def test_pool_keystore_decrypts_like_jax(tmp_path):
     """A TEA1 cell (tx.cell's crypto arm) with voice: the pool's keystore=
     decrypts the same SDUs and voice as a JAX in-process MAC holding a
-    CryptoState from the same keystore."""
+    CryptoState from the same keystore (its pipeline decrypting stolen
+    halves as the port's does, decrypt_halves)."""
     keys = str(tmp_path / "keys.txt")
     with open(keys, "w") as f:
         f.write(cell_keystore([1]))

@@ -6,7 +6,9 @@ both kinds.
 Per-channel receiver (TetraReceiver(channels=2)): one VoicePipeline per
 channel, the encrypted channel's cipher state loaded from a keystore file
 (as the CLI builds it) on its upper MAC and its pipeline.  Audio, slot and
-bad-frame counts, CRC tallies and event logs must be equal.  Fleet
+bad-frame counts, CRC tallies and event logs must be equal, the JAX
+pipelines given the port's one departure (decrypt_halves: a stolen
+slot's surviving frame decrypted with keystream bits 137-273).  Fleet
 receiver: the shared voice_cb must get the same calls.  The air is clean
 (no noise), so both packages' demods slice the same dibits."""
 
@@ -18,6 +20,7 @@ from tetra_tpu.crypto.state import KeyStore as JKeyStore
 from tetra_tpu.rx.receiver import TetraReceiver as JaxReceiver
 from tetra_tpu.rx.tdma import TdmaTime
 from tetra_tpu.tx import cell as JCELL
+from tetra_tpu.voice import channel as JVC
 from tetra_tpu.voice.pipeline import VoicePipeline as JPipeline
 from tetra_tpu_torch.crypto.state import CryptoState as TCryptoState
 from tetra_tpu_torch.crypto.state import KeyStore as TKeyStore
@@ -31,6 +34,28 @@ BLK = 4608
 N_BLOCKS = 16
 CFO_HZ = (60.0, -90.0)
 ENCRYPTED = 1          # carrier 1 carries the TEA1 cell
+
+
+def decrypt_halves(vp):
+    """A JAX pipeline whose half() decrypts the surviving frame of a stolen
+    slot with keystream bits 137-273, as the port's VoicePipeline.half does
+    (the JAX package's decrypts no half); vp, changed in place."""
+    def half(time, type4):
+        if not vp._gate(time):
+            return
+        frame, bfi = JVC.decode_half_slot(np.asarray(type4)[None],
+                                          profile=vp.profile)
+        cs = vp.crypto_state
+        ks = cs.keystream_bits(cs.cck, time, 274) \
+            if cs is not None and cs.cck else None
+        if ks is not None:
+            frame[0] ^= ks[137:]
+        vp.slots_decoded += 1
+        vp.bad_frames += int(bfi[0])
+        vp.audio += [np.zeros(240, np.int16),
+                     vp.decoder.decode_frame(frame[0], bfi=bool(bfi[0]))]
+    vp.half = half
+    return vp
 
 
 def _cell_cfg(c: int):
@@ -79,7 +104,7 @@ def _run(pkg: str, iq, keys):
         cs = TCryptoState(store=TKeyStore.load(keys))
     else:
         rx = JaxReceiver(channels=2)
-        pipes = [JPipeline() for _ in range(2)]
+        pipes = [decrypt_halves(JPipeline()) for _ in range(2)]
         cs = JCryptoState(store=JKeyStore.load(keys))
     rx.mac[ENCRYPTED].upper.crypto_state = cs
     pipes[ENCRYPTED].crypto_state = cs

@@ -14,6 +14,12 @@ samples, see --format), or `udp:PORT`
 for a live stream into the native ring-buffer runtime - or a wideband capture
 with --wideband N (channelized to N x 25 kHz channels).
 
+With --fleet, --voice monitors every call (voice=True: the fleet engine's
+voice monitor, every traffic timeslot of every channel, decrypted where
+--keystore holds the cell's key) and writes each call's PCM to a file of
+its own, the --voice name with .c<channel>.t<timeslot> before its
+extension.
+
 Everything on the device runs on --device: the current CUDA device by
 default, the CPU only when asked for (--device cpu).  --profile DIR writes
 a torch.profiler trace of the decode loop (DIR/tetra_rx.pt.trace.json),
@@ -306,6 +312,49 @@ def _format_event(e) -> str | None:
     return None
 
 
+class CallPcm:
+    """The fleet voice monitor's PCM, each call (channel, timeslot) into a
+    file of its own: `path` with .c<channel>.t<timeslot> before its
+    extension, raw s16 8 kHz, or a WAV where `path` ends .wav."""
+
+    def __init__(self, path: str):
+        self.stem, self.ext = os.path.splitext(path)
+        self.files: dict = {}
+
+    def _file(self, c: int, tn: int):
+        f = self.files.get((c, tn))
+        if f is None:
+            name = f"{self.stem}.c{c}.t{tn}{self.ext}"
+            if self.ext == ".wav":
+                import wave
+                f = wave.open(name, "wb")
+                f.setnchannels(1)
+                f.setsampwidth(2)
+                f.setframerate(8000)
+            else:
+                f = open(name, "wb")
+            self.files[(c, tn)] = f
+        return f
+
+    def write(self, blocks: list) -> None:
+        """VoiceBlocks (voice.monitor), rows in time order within a call."""
+        for b in blocks:
+            key = b.carrier * 4 + b.timeslot - 1
+            order = np.argsort(key, kind="stable")
+            calls, starts = np.unique(key[order], return_index=True)
+            for k, rows in zip(calls, np.split(order, starts[1:])):
+                f = self._file(int(k) // 4, int(k) % 4 + 1)
+                data = np.ascontiguousarray(b.pcm[rows]).tobytes()
+                if hasattr(f, "writeframes"):
+                    f.writeframes(data)
+                else:
+                    f.write(data)
+
+    def close(self) -> None:
+        for f in self.files.values():
+            f.close()
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("input", help="raw IQ file (see --format) or udp:PORT")
@@ -330,7 +379,9 @@ def main(argv=None):
                     help="native fleet engine: whole bit pipeline (burst "
                          "sync + MAC + display) in C++ around batched "
                          "device FEC -- the production path at scale "
-                         "(implies no event log / no --keystore)")
+                         "(implies no event log; with --voice, every "
+                         "call's PCM to its own file, decrypted with "
+                         "--keystore)")
     ap.add_argument("--link-profile", choices=("tunnel", "pcie"),
                     default="tunnel",
                     help="with --fleet: pcie (a locally attached card) "
@@ -349,7 +400,9 @@ def main(argv=None):
                     help="shard host MAC dispatch over N worker processes "
                          "(rx.hostpool; for 100+ channel configs)")
     ap.add_argument("--keystore", default=None,
-                    help="crypto keystore file (reference text format)")
+                    help="crypto keystore file (reference text format); "
+                         "with --fleet, the voice monitor's keys (give "
+                         "--voice too)")
     ap.add_argument("--duration", type=float, default=10.0,
                     help="seconds to run for live (udp:) input")
     ap.add_argument("-v", "--verbose", action="store_true",
@@ -448,9 +501,16 @@ def main(argv=None):
         return 0
 
     pooled = args.mac_workers > 0
+    if args.fleet and args.keystore and not args.voice:
+        raise SystemExit("--fleet takes --keystore for its voice monitor: "
+                         "give --voice too")
+    if args.fleet and args.voice and args.audio_rate:
+        raise SystemExit("--fleet --voice writes each call's 8 kHz PCM; "
+                         "--audio-rate is for the per-channel receivers")
+    monitor = bool(args.fleet and args.voice)
     voice = VoicePipeline(calibrate=args.calibrate_codec,
                           device=args.device) \
-        if (args.voice and not pooled) else None
+        if (args.voice and not pooled and not monitor) else None
     if voice is not None and voice.calibrator is not None:
         voice.calibrator.log = lambda msg: print(f"[voice] {msg}")
     rx = None
@@ -463,7 +523,9 @@ def main(argv=None):
         audio_out = AudioOutput(out_rate=args.audio_rate,
                                 device=args.device)
     pcm_out = None
-    if args.voice:
+    if monitor:
+        pcm_out = CallPcm(args.voice)
+    elif args.voice:
         if args.voice.endswith(".wav"):
             # playable WAV container: 8 kHz mono s16, or with --audio-rate
             # the resampled stereo tail converted back to s16
@@ -521,19 +583,17 @@ def main(argv=None):
                     if args.verbose:
                         print("# --fleet: event log unavailable "
                               "(native dispatch)", flush=True)
-                    if args.keystore:
-                        raise SystemExit("--fleet excludes --keystore "
-                                         "(crypto needs the Python MAC path)")
-                    rx = TetraReceiver(C, voice_cb=voice, mode=args.demod,
+                    rx = TetraReceiver(C, mode=args.demod,
                                        events=False, wideband=wb,
                                        fleet=True, wb_k=args.wb_k,
                                        link_profile=args.link_profile,
+                                       voice=monitor, keystore=args.keystore,
                                        device=args.device)
                 else:
                     rx = TetraReceiver(C, voice_cb=voice, mode=args.demod,
                                        events=args.verbose, wideband=wb,
                                        device=args.device)
-                if args.keystore and not pooled:
+                if args.keystore and not pooled and not args.fleet:
                     from ..crypto.state import CryptoState, KeyStore
                     for m in rx.mac:
                         m.upper.crypto_state = CryptoState(
@@ -560,7 +620,9 @@ def main(argv=None):
                         if line:
                             print(f"[ch {c}] {e[1]} {line}")
                     ev_seen[c] = len(events)
-            if pcm_out is not None:
+            if monitor:
+                pcm_out.write(rx.take_voice())
+            elif pcm_out is not None:
                 pcm = (rx.pool.take_audio() if pooled
                        else voice.take_audio() if voice is not None
                        else None)

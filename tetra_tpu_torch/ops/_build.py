@@ -82,9 +82,11 @@ def _declare(lib) -> None:
     # z(2), F, twiddles, Wt(2), scratch y(2), hist(2), coef, off, out(2),
     # tails(2) | n_out, n_ch, n_s, t_out | stream
     lib.launch_fold_dft_resample.argtypes = [P] * 16 + [I] * 4 + [P]
+    # x, truncate, signs (host), bits | R, T | stream
+    lib.launch_speech_trellis.argtypes = [P] * 4 + [I] * 2 + [P]
     for name in ("launch_agc_fll_rrc", "launch_mm_costas",
                  "launch_fold_dft", "launch_resample",
-                 "launch_fold_dft_resample"):
+                 "launch_fold_dft_resample", "launch_speech_trellis"):
         getattr(lib, name).restype = ctypes.c_int
 
 

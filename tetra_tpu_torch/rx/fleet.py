@@ -10,10 +10,18 @@ the channel count:
 
 The C++ engine is the reference's own source (tetra_tpu/rx/native/
 fleet.cpp), compiled with g++ into this package's build directory; its
-channel state struct is mirrored below.  The engine takes the reference's
-FEC choices (typed, split or mixed), bucket sizes, worker threads and
-link profile ("tunnel" or "pcie"); the buckets are chunk sizes here
-(rx/fec).
+channel state struct is mirrored below.
+
+Speech rows: a full-slot SCH/F row of a traffic slot (the channel's
+ACCESS-ASSIGN says traffic when the dispatch reaches it) carries speech,
+whose CRC fails by design, a failure the dispatch does not count.  Such
+rows skip the FEC pass; the dispatch still sees them as voice slots.  With voice=True the engine's voice monitor
+(voice/monitor.VoiceMonitor) decodes every voice row of a superblock,
+full slots and surviving halves, after the dispatch.
+
+The engine takes the reference's FEC choices (typed, split or mixed),
+bucket sizes, worker threads and link profile ("tunnel" or "pcie"); the
+buckets are chunk sizes here (rx/fec).
 """
 
 from __future__ import annotations
@@ -131,9 +139,14 @@ class FleetEngine:
                  pad_rows: int = 0, cch_bucket: int = 0, bbk_bucket: int = 0,
                  split_fec: bool = False, typed_fec: bool = True,
                  short_bucket: int = 0, schf_bucket: int = 0,
-                 threads: int | None = None, link_profile: str = "tunnel"):
+                 threads: int | None = None, link_profile: str = "tunnel",
+                 voice: bool = False, keystore: str | None = None):
         """The reference's signature, with device second (as the port's
-        callers pass it).
+        callers pass it), and the voice monitor.
+
+        voice: decode every call's speech (voice/monitor.VoiceMonitor,
+        drained with take_voice()), decrypted with the text keystore at
+        `keystore` where it holds the cell's key.
 
         threads: worker threads of the native per-channel loops (channels
         are independent; ctypes releases the GIL).  None reads
@@ -210,10 +223,19 @@ class FleetEngine:
         # every channel's burst-sync state (the struct's first field) in
         # one strided view over the native channel array
         size = lib.fleet_chan_size()
-        self._sync_state = np.ndarray(
-            (channels,), np.int64, strides=(size,),
-            buffer=(ctypes.c_char * (size * channels)).from_address(
-                lib.fleet_chan_ptr(self.h, 0)))
+        chan_mem = (ctypes.c_char * (size * channels)).from_address(
+            lib.fleet_chan_ptr(self.h, 0))
+
+        def field(offset: int) -> np.ndarray:
+            return np.ndarray((channels,), np.int64, strides=(size,),
+                              buffer=chan_mem, offset=offset)
+        self._sync_state = field(0)
+        # the MAC's traffic flag (the last good ACCESS-ASSIGN's downlink
+        # usage) and the adopted cell, every channel's in one view each
+        self._is_traffic = field(FleetChanStruct.mac.offset)
+        self.cell_mcc = field(FleetChanStruct.cell_mcc.offset)
+        self.cell_mnc = field(FleetChanStruct.cell_mnc.offset)
+        self.cell_cc = field(FleetChanStruct.cell_cc.offset)
         self._cap = 0
         self._t5 = self._meta = None
         # keystream table on the FEC device: slot 0 = SCRAMB_INIT, the
@@ -223,6 +245,14 @@ class FleetEngine:
         self._ks_slot_scramb = np.full(_KS_SLOTS, -1, np.int64)
         self._ks_slot_scramb[0] = P.SCRAMB_INIT
         self._ks_dev = None
+        self.voice = None
+        if voice:
+            from ..voice.monitor import VoiceMonitor
+            self.voice = VoiceMonitor(channels, self.device, keystore,
+                                      threads)
+        elif keystore is not None:
+            raise ValueError("a keystore decrypts the voice monitor's "
+                             "speech: pass voice=True with it")
 
     def __del__(self):
         h, self.h = getattr(self, "h", None), None
@@ -355,9 +385,49 @@ class FleetEngine:
                                np.uint8)], axis=1)
             return np.packbits(t1pad, axis=1), oku
 
+    def _speech_rows(self, meta: np.ndarray, chans: np.ndarray,
+                     blk_types: np.ndarray) -> np.ndarray:
+        """(n,) bool: the full-slot SCH/F rows that the dispatch will take
+        as voice slots.  The MAC's traffic flag is set by each good
+        ACCESS-ASSIGN (decoded at feed time, meta[:, 11]): traffic where
+        its header is not 0 and its downlink usage is above 3, never in
+        frame 18; a channel's rows before its batch's first good one take
+        the flag the channel holds now.  The frame is the row's stamp,
+        which is the dispatch's wherever no SYNC PDU moves the channel's
+        time within the batch (_moved_channels)."""
+        n = len(meta)
+        sch = blk_types == P.TPSAP_T_SCH_F
+        if not sch.any():
+            return sch
+        v = meta[:, 11]
+        aach = (blk_types == P.TPSAP_T_BBK) & ((v & 0xC000) == 0xC000)
+        traffic = ((v >> 12) & 3 != 0) & ((v >> 6) & 0x3F > 3) \
+            & (meta[:, 5] != 18)
+        i = np.arange(n)
+        last = np.maximum.accumulate(np.where(aach, i, -1))
+        first = np.maximum.accumulate(np.where(
+            np.r_[True, chans[1:] != chans[:-1]], i, 0))
+        own = last >= first
+        flag = np.where(own, traffic[np.maximum(last, 0)],
+                        self._is_traffic[chans] != 0)
+        return sch & flag
+
+    @staticmethod
+    def _moved_channels(meta: np.ndarray, rows: np.ndarray,
+                        type1p: np.ndarray) -> np.ndarray:
+        """Channels of the good SYNC PDU rows `rows` whose timeslot or frame
+        differs from the row's stamp: the dispatch moves those channels'
+        time, and with it the frame their ACCESS-ASSIGNs are read in."""
+        t1 = np.unpackbits(type1p[rows, :3], axis=1)
+        tn = t1[:, 10:12] @ np.array([2, 1]) + 1
+        fn = (t1[:, 12:17] @ (1 << np.arange(4, -1, -1)) - 1) % 18 + 1
+        moved = (tn != meta[rows, 4]) | (fn != meta[rows, 5])
+        return np.unique(meta[rows[moved], 0])
+
     def _decode_dispatch(self, n: int, K: int) -> int:
         """Emitted type-5 rows -> one FEC pass -> native MAC dispatch ->
-        deferred voice callbacks (the reference's flow, step for step)."""
+        deferred voice callbacks and the voice monitor (the reference's
+        flow, step for step, but for the speech rows' skipped FEC)."""
         if n == 0:
             return 0
         if K > 1:
@@ -373,6 +443,7 @@ class FleetEngine:
 
         # BBK rows were decoded at feed time: meta[11] = info14 | ok<<14 | 1<<15
         local = (meta[:, 11] & 0x8000) != 0
+        speech = self._speech_rows(meta, chans, blk_types)
 
         def fill_local(rows, type1p, ok):
             vals = meta[rows, 11]
@@ -382,10 +453,10 @@ class FleetEngine:
             type1p[rows, 1] = ((info & 63) << 2).astype(np.uint8)
             ok[rows] = ((vals >> 14) & 1).astype(bool)
 
-        if local.any():
+        if local.any() or speech.any():
             type1p = np.zeros((n, _T1P_BYTES), np.uint8)
             ok = np.zeros(n, bool)
-            didx = np.nonzero(~local)[0]
+            didx = np.nonzero(~local & ~speech)[0]
             if len(didx):
                 t1d, okd = self._decode(t5p[didx], blk_types[didx],
                                         scrambs[didx])
@@ -396,8 +467,11 @@ class FleetEngine:
             type1p, ok = self._decode(t5p, blk_types, scrambs)
 
         # adopt each channel's first good SYNC PDU scrambling code and
-        # re-decode rows decoded under a stale code
+        # re-decode rows decoded under a stale code; the speech rows of a
+        # channel whose time a SYNC PDU moves decode too (the frame that
+        # made them speech may not be the dispatch's)
         sb1 = (blk_types == P.TPSAP_T_SB1) & ok
+        redo = np.zeros(n, bool)
         if sb1.any():
             rows = np.nonzero(sb1)[0]
             t1s = np.unpackbits(type1p[rows], axis=1)
@@ -405,7 +479,6 @@ class FleetEngine:
             mnc = t1s[:, 41:55] @ (1 << np.arange(13, -1, -1))
             cc = t1s[:, 4:10] @ (1 << np.arange(5, -1, -1))
             new_scr = ((cc | (mnc << 6) | (mcc << 20)) << 2) | P.SCRAMB_INIT
-            redo = np.zeros(n, bool)
             adopted: dict[int, int] = {}
             for r, sc in zip(rows, new_scr):
                 c = int(chans[r])
@@ -415,37 +488,43 @@ class FleetEngine:
                 if sc != int(self.scramb[c]):
                     redo |= (chans == c) & (blk_types != P.TPSAP_T_SB1)
                     scrambs[chans == c] = sc
-            if redo.any():
-                bidx = np.nonzero(redo & local)[0]
-                if len(bidx):
-                    tb = np.ascontiguousarray(t5p[bidx])
-                    sb = np.ascontiguousarray(scrambs[bidx], np.int64)
-                    out64 = np.empty(len(bidx), np.int64)
-                    self.lib.fleet_rm_redecode(self.h, tb.ctypes.data,
-                                               sb.ctypes.data, len(bidx),
-                                               out64.ctypes.data)
-                    meta[bidx, 11] = out64 | 0x8000
-                    fill_local(bidx, type1p, ok)
-                ridx = np.nonzero(redo & ~local)[0]
-                if len(ridx):
-                    t1r, okr = self._decode(t5p[ridx], blk_types[ridx],
-                                            scrambs[ridx])
-                    type1p[ridx] = t1r
-                    ok[ridx] = okr
+            if speech.any():
+                redo |= speech & np.isin(
+                    chans, self._moved_channels(meta, rows, type1p))
+        if redo.any():
+            bidx = np.nonzero(redo & local)[0]
+            if len(bidx):
+                tb = np.ascontiguousarray(t5p[bidx])
+                sb = np.ascontiguousarray(scrambs[bidx], np.int64)
+                out64 = np.empty(len(bidx), np.int64)
+                self.lib.fleet_rm_redecode(self.h, tb.ctypes.data,
+                                           sb.ctypes.data, len(bidx),
+                                           out64.ctypes.data)
+                meta[bidx, 11] = out64 | 0x8000
+                fill_local(bidx, type1p, ok)
+            ridx = np.nonzero(redo & ~local)[0]
+            if len(ridx):
+                t1r, okr = self._decode(t5p[ridx], blk_types[ridx],
+                                        scrambs[ridx])
+                type1p[ridx] = t1r
+                ok[ridx] = okr
 
         actions = np.empty(n, np.uint8)
         times = np.empty((n, 5), np.int64)
         okb = np.ascontiguousarray(ok, np.uint8)
         type1p = np.ascontiguousarray(type1p)
         half_cb = getattr(self.voice_cb, "half", None)
+        want = self.voice is not None
         with S.span("engine.dispatch"):
             self.lib.fleet_dispatch(self.h, type1p.ctypes.data,
                                     okb.ctypes.data, meta.ctypes.data, n,
-                                    int(self.voice_cb is not None),
-                                    int(half_cb is not None),
+                                    int(want or self.voice_cb is not None),
+                                    int(want or half_cb is not None),
                                     actions.ctypes.data, times.ctypes.data)
         if self.voice_cb is not None and actions.any():
             for i in np.nonzero(actions)[0]:
+                if actions[i] == 2 and half_cb is None:
+                    continue
                 c = int(chans[i])
                 t345 = int(meta[i, 10])
                 type5 = np.unpackbits(t5p[i])[:t345]
@@ -455,7 +534,19 @@ class FleetEngine:
                     self.voice_cb(t, type4)
                 else:
                     half_cb(t, type4)
+        if self.voice is not None:
+            rows = np.nonzero(actions)[0]
+            self.voice.process(self, rows,
+                               (actions[rows] - 1).astype(np.int8), t5p,
+                               meta, times, type1p, ok)
         return int(n)
+
+    def take_voice(self) -> list:
+        """The voice monitor's VoiceBlocks since the last call, one a
+        superblock, oldest first (voice/monitor.VoiceMonitor.take)."""
+        if self.voice is None:
+            raise ValueError("the engine was built without voice=True")
+        return self.voice.take()
 
     # -- checkpoint ----------------------------------------------------------
 

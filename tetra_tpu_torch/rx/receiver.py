@@ -18,7 +18,10 @@ Ported, each wideband (wideband=N: front end K3 per cycle) or narrowband
 Voice and air-interface decryption plug in per channel as in the
 reference: a voice callback (voice.pipeline.VoicePipeline, or the shared
 voice_cb) on rx.mac[c].voice_cb or the fleet engine, and a
-crypto.state.CryptoState on rx.mac[c].upper.crypto_state.
+crypto.state.CryptoState on rx.mac[c].upper.crypto_state.  The fleet
+receiver with voice=True monitors every call instead: each superblock's
+speech of every (carrier, timeslot), decrypted where keystore= holds the
+cell's key, as arrays from take_voice() (voice/monitor.py).
 
 The narrowband receivers (process() of 36 ksps blocks) also run the other
 two demod chains: mode="ff", the feedforward block receiver
@@ -181,9 +184,11 @@ class TetraReceiver:
         workers with rx.pool.close().
 
         voice: as in the reference, it selects worker-side voice pipelines
-        in the MAC pool (mac_workers) and is otherwise unused; per-channel
-        voice is a VoicePipeline on rx.mac[c].voice_cb (or voice_cb= for
-        every channel).
+        in the MAC pool (mac_workers); with fleet=True it turns on the
+        fleet engine's voice monitor, every call on every carrier decoded
+        a superblock at a time and drained with take_voice(); otherwise it
+        is unused (per-channel voice is a VoicePipeline on
+        rx.mac[c].voice_cb, or voice_cb= for every channel).
 
         mode: "fast" = the chunked production chain (rx/demod_fast, the
         K1 and K2 kernels); "ff" = the feedforward block receiver
@@ -192,9 +197,9 @@ class TetraReceiver:
         reference.
 
         keystore: as in the reference, the pooled receiver's worker-side
-        keys (mac_workers); otherwise unused (per-channel decryption is a
-        crypto.state.CryptoState on rx.mac[c].upper.crypto_state).  Fleet
-        mode takes none."""
+        keys (mac_workers); with fleet=True and voice=True the voice
+        monitor's keys (TEA1); otherwise unused (per-channel decryption is
+        a crypto.state.CryptoState on rx.mac[c].upper.crypto_state)."""
         demods = {"fast": demod_fast, "ff": demod_ff, "exact": demod_exact}
         if mode not in demods:
             raise ValueError(f"mode={mode!r}: one of {sorted(demods)}")
@@ -206,9 +211,9 @@ class TetraReceiver:
                              "dispatches the MAC in C++")
         if mac_workers and voice_cb is not None:
             raise ValueError("pool mode: use voice=True, not voice_cb")
-        if fleet and keystore is not None:
-            raise ValueError("fleet mode takes no keystore: crypto needs "
-                             "the per-channel MAC")
+        if fleet and keystore is not None and not voice:
+            raise ValueError("fleet mode takes a keystore for its voice "
+                             "monitor only: pass voice=True with it")
         if link_profile not in ("tunnel", "pcie"):
             raise ValueError(f"link_profile={link_profile!r}: 'tunnel' or "
                              f"'pcie'")
@@ -244,7 +249,8 @@ class TetraReceiver:
                     if channels >= 64 else 0
             self.fleet = FleetEngine(channels, self.device, voice_cb=voice_cb,
                                      pad_rows=pad_rows,
-                                     link_profile=link_profile)
+                                     link_profile=link_profile,
+                                     voice=voice, keystore=keystore)
             self.mac = []
         else:
             self.fleet = None
@@ -588,6 +594,15 @@ class TetraReceiver:
             dtype=np.float64)))
         self.fleet.process_packed2(fused[:-2], self.wb_k,
                                    self._wb["n_chunks"])
+
+    def take_voice(self) -> list:
+        """The fleet voice monitor's output since the last call (voice=True):
+        one voice.monitor.VoiceBlock of arrays a superblock, oldest first;
+        a consumer that does not drain it loses the oldest superblocks
+        past voice.monitor.RING_BLOCKS."""
+        if self.fleet is None:
+            raise ValueError("take_voice needs fleet=True, voice=True")
+        return self.fleet.take_voice()
 
     def flush_wideband(self) -> None:
         """Decode the superblock the pipelined path holds back (call

@@ -44,14 +44,24 @@ Spans (parent in brackets):
         fec           [engine]  one typed FEC pass (its self time: enqueue)
           fec.wait    [fec]     the FEC's one synchronise
         engine.dispatch [engine] native MAC dispatch
+        voice         [engine]  the voice monitor's stage (voice=True):
+                                a superblock's speech slots to PCM
+          voice.decode  [voice] the batched speech decode's enqueue and
+                                its one wait
+          voice.decrypt [voice] the cipher state, the TEA1 keystreams and
+                                their XOR onto the codec frames
+          voice.acelp   [voice] the batched ACELP synthesis
 
 Counters: fec.rows (rows handed to the card's FEC), hunt.bits (bits fed
 to carriers that were unlocked when the superblock's feed began),
 ingest.bytes_fed (IQ bytes given to process_wideband),
 ingest.bytes_copied (bytes the ingest wrote on the host: a dtype cast,
 and each write's copy into pinned staging, or into the ring itself on a
-CPU device) and ingest.bytes_uploaded (bytes written into the ring from
-host memory).
+CPU device), ingest.bytes_uploaded (bytes written into the ring from
+host memory), and the voice monitor's voice.slots (full traffic slots
+decoded), voice.halves (surviving halves of first-half steals decoded),
+voice.bad_frames (codec frames flagged bad) and voice.frames_decrypted
+(codec frames TEA1-decrypted).
 """
 
 from __future__ import annotations
@@ -64,10 +74,12 @@ import torch
 
 SPANS = ("ingest", "ingest.buffer", "ingest.frame", "ingest.upload",
          "superblock", "step", "fetch", "engine", "engine.feed", "fec",
-         "fec.wait", "engine.dispatch")
+         "fec.wait", "engine.dispatch", "voice", "voice.decode",
+         "voice.decrypt", "voice.acelp")
 PROFILED = ("frontend", "demod")
 COUNTERS = ("fec.rows", "hunt.bits", "ingest.bytes_fed",
-            "ingest.bytes_copied", "ingest.bytes_uploaded")
+            "ingest.bytes_copied", "ingest.bytes_uploaded", "voice.slots",
+            "voice.halves", "voice.bad_frames", "voice.frames_decrypted")
 RING_ROWS = 16384
 
 _HEAD = ("seq", "start_ns", "end_ns")

@@ -7,8 +7,11 @@ C ABI, mirroring the reference's use of the native ETSI decoder
 (tetra_lower_mac.c:355-363).  The source is the port's own copy,
 csrc/host/acelp_codec.cpp (byte-equal to the JAX package's), built on first
 use by ops._build.host_library into tetra_tpu_torch/build/ with the JAX
-package's compiler flags (g++ -O2 -shared -fPIC), so both builds compute
-the same floats.
+package's compiler flags (g++ -O2 -shared -fPIC, and -pthread), so both
+builds compute the same floats.  The library is built from
+csrc/host/acelp_batch.cpp, which includes the codec whole and adds
+AcelpBank's batch entry point: the decoders of many calls synthesised in
+one call, over worker threads.
 """
 
 from __future__ import annotations
@@ -21,8 +24,10 @@ import numpy as np
 
 from ..ops._build import host_library
 
-_SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
-    __file__))), "csrc", "host", "acelp_codec.cpp")
+_HOST = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "csrc", "host")
+_SRC = os.path.join(_HOST, "acelp_codec.cpp")
+_SRC_BATCH = os.path.join(_HOST, "acelp_batch.cpp")
 
 _lib = None
 _lock = threading.Lock()
@@ -61,7 +66,8 @@ def _load():
     with _lock:
         if _lib is not None:
             return _lib
-        lib = ctypes.CDLL(host_library("tetra_acelp", [_SRC], ["-O2"]))
+        lib = ctypes.CDLL(host_library("tetra_acelp", [_SRC_BATCH, _SRC],
+                                       ["-O2", "-pthread"]))
         lib.tetra_acelp_create.restype = ctypes.c_void_p
         lib.tetra_acelp_destroy.argtypes = [ctypes.c_void_p]
         lib.tetra_acelp_decode_frame.argtypes = [
@@ -78,6 +84,9 @@ def _load():
             ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
             ctypes.c_float]
         lib.tetra_acelp_tables_loaded.restype = ctypes.c_int
+        vp, i64 = ctypes.c_void_p, ctypes.c_int64
+        lib.tetra_acelp_decode_batch.argtypes = [vp, i64, vp, vp, vp, vp, vp,
+                                                 vp, i64]
         _lib = lib
         return lib
 
@@ -151,6 +160,62 @@ class AcelpDecoder:
         frames = np.asarray(frames, np.uint8).reshape(2, FRAME_BITS)
         return np.concatenate([self.decode_frame(frames[0], bfi),
                                self.decode_frame(frames[1], bfi)])
+
+
+class AcelpBank:
+    """The decoders of many calls, synthesised a batch at a time: one
+    AcelpDecoder state per call key, made on the call's first synthesised
+    item, and one C++ call a batch (acelp_batch.cpp) with the calls spread
+    over `threads` worker threads, each call's items in order on one."""
+
+    def __init__(self, threads: int = 1):
+        self._lib = _load()
+        self.threads = max(1, int(threads))
+        self._handles: dict[int, int] = {}
+
+    def __del__(self):
+        lib = getattr(self, "_lib", None)
+        for h in getattr(self, "_handles", {}).values():
+            lib.tetra_acelp_destroy(h)
+        self._handles = {}
+
+    def __len__(self) -> int:
+        return len(self._handles)
+
+    def decode(self, calls: np.ndarray, frames: np.ndarray, bfi: np.ndarray,
+               kind: np.ndarray) -> np.ndarray:
+        """Items in time order within each call: calls (N,) int64 keys,
+        frames (N, 2, 137) uint8 bits, bfi (N, 2) bad-frame flags, kind (N,)
+        0 a full slot (both frames), 1 a surviving second half (240 samples
+        of silence, then frame 2), 2 withheld (480 samples of silence; the
+        call's decoder, if any, is left as it is).  Returns (N, 480) int16
+        PCM."""
+        calls = np.asarray(calls, np.int64)
+        kind = np.ascontiguousarray(kind, np.int8)
+        n = len(calls)
+        out = np.empty((n, 2 * FRAME_SAMPLES), np.int16)
+        if n == 0:
+            return out
+        order = np.argsort(calls, kind="stable")
+        keys, starts = np.unique(calls[order], return_index=True)
+        seg = np.append(starts, n).astype(np.int64)
+        live = np.zeros(len(keys), bool)
+        np.logical_or.at(live, np.searchsorted(keys, calls), kind != 2)
+        handles = np.zeros(len(keys), np.uint64)
+        for j, k in enumerate(keys.tolist()):
+            h = self._handles.get(k)
+            if h is None and live[j]:
+                h = self._handles[k] = self._lib.tetra_acelp_create()
+            handles[j] = h or 0
+        frames = np.ascontiguousarray(frames, np.uint8)
+        bfi = np.ascontiguousarray(bfi, np.uint8)
+        assert frames.shape == (n, 2, FRAME_BITS) and bfi.shape == (n, 2)
+        order = np.ascontiguousarray(order, np.int64)
+        self._lib.tetra_acelp_decode_batch(
+            handles.ctypes.data, len(keys), seg.ctypes.data,
+            order.ctypes.data, frames.ctypes.data, bfi.ctypes.data,
+            kind.ctypes.data, out.ctypes.data, self.threads)
+        return out
 
 
 class AcelpEncoder:

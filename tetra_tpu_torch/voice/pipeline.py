@@ -76,6 +76,8 @@ class VoicePipeline:
         second frame is a capability extension (ROADMAP).  The stolen first
         frame's 240 samples are padded with silence so the audio clock stays
         at 480 samples/slot like put_voice_data (osmotetra_dec.h:216-223).
+        With a crypto state the frame is decrypted as the slot's second
+        frame: keystream bits 137-273 (the reference decrypts no half).
         """
         if not self._gate(time):
             return
@@ -93,6 +95,14 @@ class VoicePipeline:
                     np.asarray(type4)[None], profile=self.profile,
                     device=self.device)
                 is_bad = bool(bfi[0])
+        if self.crypto_state is not None:
+            # the surviving frame is the slot's second: XOR the keystream
+            # bits that lie over it in a full slot (bits 137-273)
+            key = self.crypto_state.cck
+            ks = (self.crypto_state.keystream_bits(
+                key, time, 2 * vchannel.N_FRAME_BITS) if key else None)
+            if ks is not None:
+                frame[0] ^= ks[vchannel.N_FRAME_BITS:]
         self.slots_decoded += 1
         if is_bad:
             self.bad_frames += 1
