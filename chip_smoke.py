@@ -15,7 +15,14 @@ Phases, each printing one line (any failure raises and exits non-zero):
    t50=6400, fleet=True, wb_k=8, device="cuda") over ~6 s of synthesized
    8-cell air (5 superblocks of staged windows); gates: > 90% of channels
    locked, crc_ok > 3 x crc_fail after warm-up, the cells' MCC/MNC
-   decoded, and every kernel launched;
+   decoded, every kernel launched, and the typed FEC's trellis kernel
+   (csrc/fec_trellis.cu) launched once or twice a timed superblock (it
+   prints the launches and fec.trellis_rows against fec.rows, from the
+   program's spans).  The kernel's rows then come from the slice's
+   trellis inputs: the SB1/NDB chunk (~37,000 rows x 144 steps), 4 times
+   that, and a 288-step chunk of the receiver's SCH-F chunk size, each
+   bit for bit against its plain twin rx/viterbi._viterbi on the card,
+   with both times and the kernel's bound;
 3b. slice_pipeline (run after slice, printed after the profiler windows):
    the same staged air through TetraReceiver(..., link_profile="pcie")
    (superblocks double-buffered, the step on the receiver's side CUDA
@@ -27,7 +34,8 @@ Phases, each printing one line (any failure raises and exits non-zero):
    locks, CRC tallies, display, lock losses and the engine's state blob
    equal to the tunnel twin's on 256/256 channels, the slice's three
    decode gates, K1-K4 launched 8 times a superblock by each, the pcie
-   receiver's all on its side stream.  It prints per receiver the
+   receiver's all on its side stream (its FEC's trellis kernels on the
+   caller's, where the FEC runs).  It prints per receiver the
    superblock wall (mean, min, max), host-clock stages, rt_margin and
    IQ->PDU latency (sb_air x (1 + pipelined) + wall, as
    scripts/bench_e2e.py computes it); the typed FEC of one superblock's
@@ -229,17 +237,20 @@ from torch.profiler import ProfilerActivity, profile
 
 from tetra_tpu_torch import convert, exact_float32
 from tetra_tpu_torch import params as P
+from tetra_tpu_torch import spans as SPANS
 from tetra_tpu_torch.apps.tetra_rx import load_iq
 from tetra_tpu_torch.crypto.state import CryptoState, KeyStore
 from tetra_tpu_torch.ops import _build
 from tetra_tpu_torch.ops import chan_kernel as CK
 from tetra_tpu_torch.ops import demod_kernel as DK
+from tetra_tpu_torch.ops import fec_trellis as FT
 from tetra_tpu_torch.ops import mm_kernel as MK
 from tetra_tpu_torch.parallel import channelizer as CH
 from tetra_tpu_torch.rx import demod_fast as DF
 from tetra_tpu_torch.rx import fec as FEC
 from tetra_tpu_torch.rx import lower_mac as LM
 from tetra_tpu_torch.rx import receiver as R
+from tetra_tpu_torch.rx import viterbi as V
 from tetra_tpu_torch.rx.hostpool import MacPool
 from tetra_tpu_torch.rx.receiver import TetraReceiver
 from tetra_tpu_torch.ops import speech_kernel as SK
@@ -385,6 +396,8 @@ REPLACES = {
     "K3 fold_dft_resample": "tetra_tpu/ops/chan_pallas.py:176",
     "K4 fold_dft": "tetra_tpu/ops/chan_pallas.py:218",
     "speech_trellis": "tetra_tpu/voice/channel.py:420",
+    "fec_trellis": "none (tetra_tpu/rx/viterbi.py:99 _viterbi is an XLA "
+                   "scan)",
 }
 SOURCES = {
     "K1 agc_fll_rrc": "tetra_tpu_torch/csrc/agc_fll_rrc.cu",
@@ -392,6 +405,7 @@ SOURCES = {
     "K3 fold_dft_resample": "tetra_tpu_torch/csrc/chan.cu",
     "K4 fold_dft": "tetra_tpu_torch/csrc/chan.cu",
     "speech_trellis": "tetra_tpu_torch/csrc/speech_trellis.cu",
+    "fec_trellis": "tetra_tpu_torch/csrc/fec_trellis.cu",
 }
 
 
@@ -911,9 +925,12 @@ def phase_device_times(jobs: list) -> None:
         row[key.replace("device_ms", "device_kernels_ms")] = per
 
 
-def phase_slice(dev, staged: list) -> dict:
+def phase_slice(dev, staged: list) -> tuple[dict, dict]:
     """The wideband fleet receiver over the staged air, timed after a
-    1.5 s warm-up (FLL pull-in + scrambling acquisition)."""
+    1.5 s warm-up (FLL pull-in + scrambling acquisition).  Returns the
+    phase's line and the typed FEC's last trellis input of each length
+    over the timed superblocks ({steps: soft}), with the receiver's
+    SCH-F chunk size under "schf_bucket"."""
     rx = TetraReceiver(wideband=N_CH, t50=T50, fleet=True, wb_k=WB_K,
                        device=dev)
     sb_adv = WB_K * rx._wb["advance"]
@@ -928,17 +945,34 @@ def phase_slice(dev, staged: list) -> dict:
     ok0 = sum(rx.crc_counts(c)[0] for c in range(N_CH))
     fail0 = sum(rx.crc_counts(c)[1] for c in range(N_CH))
     torch.cuda.synchronize()
+    # the typed FEC reaches the trellis through its module's viterbi_decode
+    decode, soft_in = FEC.viterbi_decode, {}
+
+    def spy(soft, code="cch", term="zero"):
+        soft_in[soft.shape[1]] = soft
+        return decode(soft, code, term)
+
+    FEC.viterbi_decode = spy
+    trellis0, n_rec0 = FT.trellis.launches, len(SPANS.records())
     t0 = time.perf_counter()
     walls = []
-    for s in range(warm, n_super):
-        ts = time.perf_counter()
-        rx.process_wideband_staged(*staged[s])
-        walls.append(time.perf_counter() - ts)
+    try:
+        for s in range(warm, n_super):
+            ts = time.perf_counter()
+            rx.process_wideband_staged(*staged[s])
+            walls.append(time.perf_counter() - ts)
+    finally:
+        FEC.viterbi_decode = decode
     dt = time.perf_counter() - t0
+    trellis_launches = FT.trellis.launches - trellis0
+    rec = SPANS.records()[n_rec0:]
     launches = read_launches(wrappers)
     gates = fleet_gates(rx, ok0, fail0, "slice")
     for name, n in launches.items():
         check(n > 0, f"{name} was not launched on the main path")
+    check(len(rec) == len(walls) and 0 < trellis_launches
+          <= 2 * len(walls), f"the FEC trellis launched {trellis_launches} "
+          f"times in {len(walls)} superblocks ({len(rec)} records)")
     sb_air = sb_adv / fs
     return dict(channels=N_CH, t50=T50, wb_k=WB_K, superblocks=len(walls),
                 superblocks_driven=n_super,
@@ -946,7 +980,11 @@ def phase_slice(dev, staged: list) -> dict:
                 rt_margin=sb_air / float(np.mean(walls)),
                 sb_air_ms=sb_air * 1e3,
                 sb_wall_ms=float(np.mean(walls)) * 1e3,
-                fleet_threads=rx.fleet.threads, **gates, launches=launches)
+                fleet_threads=rx.fleet.threads, **gates, launches=launches,
+                trellis_launches=trellis_launches,
+                fec_rows=int(rec["fec.rows"].sum()),
+                fec_trellis_rows=int(rec["fec.trellis_rows"].sum())), \
+        dict(soft_in, schf_bucket=rx.fleet.schf_bucket)
 
 
 def fleet_gates(rx, ok0: int, fail0: int, what: str,
@@ -1019,11 +1057,12 @@ def phase_slice_pipeline(dev, staged: list) -> tuple[dict, object]:
     engine's state blob equal on every channel for every receiver; the
     slice's decode gates; K1-K4 launched WB_K times a superblock by each,
     the pcie receiver's, and its pack_cycle_tc's torch ops, on its side
-    stream only.  Then the typed FEC of the pcie receiver's largest batch
-    (one superblock's rows), chunked as the pcie engine chunks them and in
-    one pass.  Returns the phase's results and a job that profiles the
-    pcie and tunnel receivers over the last PIPE_PROFILED superblocks fed
-    again (run last; the air jumps back, the device work is the same)."""
+    stream only, its FEC's trellis kernels on the caller's stream.  Then
+    the typed FEC of the pcie receiver's largest batch (one superblock's
+    rows), chunked as the pcie engine chunks them and in one pass.
+    Returns the phase's results and a job that profiles the pcie and
+    tunnel receivers over the last PIPE_PROFILED superblocks fed again
+    (run last; the air jumps back, the device work is the same)."""
     rxs = {k: pipeline_receiver(dev, *cfg) for k, cfg in PIPE_CONFIGS.items()}
     pcie, tun = rxs["pcie"], rxs["tunnel"]
     cores = os.cpu_count() or 2
@@ -1045,16 +1084,20 @@ def phase_slice_pipeline(dev, staged: list) -> tuple[dict, object]:
     acc = {k: dict.fromkeys((st for _, _, st in PIPE_STAGES), 0.0)
            for k in rxs}
     rows = {}
-    streams = []
+    # kernel streams outside and inside the typed FEC (its trellis kernel
+    # runs on the caller's stream, after the fetch)
+    streams, fec_streams, in_fec = [], [], [False]
     saved = [(o, n, getattr(o, n)) for o, n, _ in PIPE_STAGES]
     decode, stream_of = FEC.decode_rows_typed_packed, _build.stream_of
 
     def timed(fn, stage):
         def wrapper(*args, **kw):
             t0 = time.perf_counter()
+            in_fec[0] = fn is decode
             try:
                 return fn(*args, **kw)
             finally:
+                in_fec[0] = False
                 if cur[0] is not None:
                     acc[cur[0]][stage] += time.perf_counter() - t0
                 if fn is decode and cur[0] == "pcie" \
@@ -1063,8 +1106,9 @@ def phase_slice_pipeline(dev, staged: list) -> tuple[dict, object]:
         return wrapper
 
     def spy_stream(t):
-        streams.append(stream_of(t))
-        return streams[-1]
+        seen = fec_streams if in_fec[0] else streams
+        seen.append(stream_of(t))
+        return seen[-1]
 
     pack = R.pack_cycle_tc
 
@@ -1078,7 +1122,7 @@ def phase_slice_pipeline(dev, staged: list) -> tuple[dict, object]:
     _build.stream_of, R.pack_cycle_tc = spy_stream, spy_pack
     launches = {k: dict.fromkeys(kernel_wrappers(), 0) for k in rxs}
     walls = {k: [] for k in rxs}
-    pcie_streams = set()
+    pcie_streams, pcie_fec_streams = set(), set()
     keys = list(rxs)
     try:
         for s, sb in enumerate(staged):
@@ -1091,6 +1135,7 @@ def phase_slice_pipeline(dev, staged: list) -> tuple[dict, object]:
                 cur[0] = k
                 wrappers = zero_launches()
                 streams.clear()
+                fec_streams.clear()
                 ts = time.perf_counter()
                 rxs[k].process_wideband_staged(*sb)
                 dt = time.perf_counter() - ts
@@ -1098,6 +1143,7 @@ def phase_slice_pipeline(dev, staged: list) -> tuple[dict, object]:
                     launches[k][name] += n
                 if k == "pcie":
                     pcie_streams.update(streams)
+                    pcie_fec_streams.update(fec_streams)
                 if s >= warm:
                     walls[k].append(dt)
         cur[0] = None                   # the flushes are not timed
@@ -1134,10 +1180,12 @@ def phase_slice_pipeline(dev, staged: list) -> tuple[dict, object]:
             check(n == WB_K * len(staged), f"{k}: {name} launched {n} "
                   f"times in {len(staged)} superblocks")
     side = pcie._side.cuda_stream
-    check(pcie_streams == {side}
-          and side != torch.cuda.default_stream(dev).cuda_stream,
+    caller = torch.cuda.default_stream(dev).cuda_stream
+    check(pcie_streams == {side} and side != caller,
           f"pcie kernels and packing ran on streams {pcie_streams}, side "
           f"{side}")
+    check(pcie_fec_streams == {caller}, f"pcie FEC trellis kernels ran on "
+          f"streams {pcie_fec_streams}, the caller's {caller}")
 
     # the typed FEC of one steady superblock's rows: chunked vs one pass
     args, kw = rows["args"], rows["kw"]
@@ -1593,13 +1641,42 @@ def phase_slice_voice(dev, nf: dict, n_ch: int = N_CH,
     return out
 
 
-def speech_trellis_work(rows: int, steps: int) -> dict:
-    """The speech trellis kernel's bound: its soft symbols (3 float32 a
-    step) and truncation flags read once, its bits written once; per row
-    and step 8 branch metrics (2 additions each), 16 add-compare-selects
-    (3 operations each) and a traceback step (1)."""
-    return bound(rows * steps * 3 * 4 + rows + rows * steps,
-                 rows * steps * (8 * 2 + 16 * 3 + 1))
+def trellis_work(rows: int, steps: int, nb: int, flag_bytes: int) -> dict:
+    """A 16-state trellis kernel's bound: its soft symbols (nb float32 a
+    step) and flag_bytes of per-row flags read once, its bits written
+    once; per row and step 2**nb branch metrics (nb - 1 additions each),
+    16 add-compare-selects (3 operations each) and a traceback step (1)."""
+    return bound(rows * steps * (nb * 4 + 1) + flag_bytes,
+                 rows * steps * (2 ** nb * (nb - 1) + 16 * 3 + 1))
+
+
+def fec_trellis_rows(soft_in: dict) -> list[dict]:
+    """The FEC trellis kernel at the fleet's shapes, from the fleet slice's
+    timed superblocks: the last SB1/NDB chunk (144 steps), that chunk 4
+    times over (band1024's rows), and a full SCH-F chunk (288 steps; the
+    slice's air sends no SCH-F, so the receiver's SCH-F chunk size in rows
+    of two SB1/NDB rows end to end, unless the air sent one), each bit for
+    bit against the plain twin _viterbi on the card and timed beside
+    it."""
+    short = soft_in[FEC._SHORT_T2]
+    schf = soft_in.get(FEC._MIX_T2)
+    if schf is None:
+        n = soft_in["schf_bucket"]
+        pick = torch.arange(2 * n, device=short.device) % short.shape[0]
+        schf = torch.cat([short[pick[:n]], short[pick[n:]]], dim=1)
+    rows = []
+    for x in (short, torch.cat([short] * 4), schf):
+        x = x.contiguous()
+        R_, T_ = x.shape[0], x.shape[1]
+        got = FT.trellis(x, False)
+        check(torch.equal(got, V._viterbi(x, False, False)),
+              f"FEC trellis differs from _viterbi at {R_} x {T_}")
+        rows.append(dict(
+            name="fec_trellis", rows=R_, steps=T_, max_abs_err=0.0,
+            ms=median_ms(lambda: FT.trellis(x, False), 20),
+            plain_ms=median_ms(lambda: V._viterbi(x, False, False), 1, 3),
+            **trellis_work(R_, T_, 4, 0)))
+    return rows
 
 
 def replay_calls(blocks: list, carriers) -> int:
@@ -1758,7 +1835,7 @@ def phase_slice_voice_fleet(dev) -> tuple[dict, dict]:
     row = dict(name="speech_trellis", rows=R_, steps=T_, max_abs_err=0.0,
                ms=median_ms(lambda: trellis(x, tr), 20),
                plain_ms=median_ms(lambda: SK.trellis_plain(x, tr), 1, 3),
-               **speech_trellis_work(R_, T_))
+               **trellis_work(R_, T_, 3, R_))
     sb_air = sb_adv / fs
     out = dict(channels=N_CH, superblocks=len(walls), fixture_s=fixture_s,
                rt_margin=sb_air / float(np.mean(walls)),
@@ -2910,9 +2987,12 @@ def main() -> None:
     rows = demod + front
     staged = staged_windows(wide, T50 * N_CH // 2, (T50 - 1) * N_CH // 2
                             + N_CH * CH.TAPS_PER_BRANCH, WB_K, dev)
-    sl = phase_slice(dev, staged)
+    sl, soft_in = phase_slice(dev, staged)
     print(f"slice: gpu=[{gpu}] " + json.dumps(sl), flush=True)
     lap("slice")
+    fec_rows = fec_trellis_rows(soft_in)
+    del soft_in
+    lap("fec_trellis")
     t0 = time.perf_counter()
     pipe, pipe_profile = phase_slice_pipeline(dev, staged)
     pipe["phase_s"] = time.perf_counter() - t0
@@ -2962,6 +3042,8 @@ def main() -> None:
     for r in rows:
         print("kernel: " + json.dumps(r), flush=True)
     print("kernel: " + json.dumps(speech_row), flush=True)
+    for r in fec_rows:
+        print("kernel: " + json.dumps(r), flush=True)
     for r in wide_rows:
         print("kernel_wide: " + json.dumps(r), flush=True)
     line = kernel_line(rows, wide_res["launches"], lambda r: dict(
@@ -2989,6 +3071,13 @@ def main() -> None:
             launches=voice_fleet["trellis_launches"],
             launches_per_superblock=voice_fleet["trellis_launches"] / n_sb,
             rows=r["rows"], steps=r["steps"]))["kernels"]
+    # launches_wide: not counted (slice_wide's receivers launch it too)
+    line["kernels"] += kernel_line(
+        fec_rows, {"fec_trellis": None}, lambda r: dict(
+            launches=sl["trellis_launches"],
+            launches_per_superblock=sl["trellis_launches"]
+            / sl["superblocks"], rows=r["rows"], steps=r["steps"]))[
+                "kernels"]
     print(gpu)
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

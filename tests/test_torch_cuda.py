@@ -16,6 +16,7 @@ import torch
 from tetra_tpu_torch import exact_float32
 from tetra_tpu_torch.ops import chan_kernel as CK
 from tetra_tpu_torch.ops import demod_kernel as DK
+from tetra_tpu_torch.ops import fec_trellis as FT
 from tetra_tpu_torch.ops import mm_kernel as MK
 from tetra_tpu_torch.parallel import channelizer as CH
 from tetra_tpu_torch.rx import demod_fast as DF
@@ -281,7 +282,8 @@ def test_mesh_superblock_1x1_matches_superblock_scan(dev, tmp_path, n_ch):
 
 def test_chunked_typed_fec_on_card_matches_cpu(dev):
     """The typed packed FEC on the card, chunked (pinned uploads, fetches
-    on the copy stream) and in one pass, equals the CPU's decode."""
+    on the copy stream) and in one pass, equals the CPU's decode, with one
+    trellis kernel launch a convolutional-coded chunk."""
     from tetra_tpu_torch import params as P
     from tetra_tpu_torch.rx import fec as FEC
     from tetra_tpu_torch.tx import fec_enc
@@ -307,9 +309,13 @@ def test_chunked_typed_fec_on_card_matches_cpu(dev):
     idx = np.ones(len(types), np.int32)
     want = FEC.decode_rows_typed_packed(t5p, types, idx,
                                         torch.from_numpy(ks))
-    for kw in (dict(), dict(short_bucket=16, schf_bucket=7, bbk_bucket=9)):
+    # 80 SB1/NDB rows and 40 SCH-F rows: one trellis launch a chunk
+    for kw, chunks in ((dict(), 2), (dict(short_bucket=16, schf_bucket=7,
+                                          bbk_bucket=9), 5 + 6)):
+        n = FT.trellis.launches
         got = FEC.decode_rows_typed_packed(
             t5p, types, idx, torch.from_numpy(ks).to(dev), **kw)
+        assert FT.trellis.launches == n + chunks
         np.testing.assert_array_equal(got[1], want[1])
         np.testing.assert_array_equal(got[0], want[0])
     assert 0 < want[1].sum() < len(types)
@@ -318,10 +324,12 @@ def test_chunked_typed_fec_on_card_matches_cpu(dev):
 def test_pipelined_matches_sync_on_card(dev):
     """8 carriers: the pcie receiver (superblock step on its side stream,
     output through pinned buffers, chunked FEC) and its tunnel twin decode
-    the same staged windows bit-equal after flush_wideband(), and every
-    kernel the pcie receiver launches, and its packing's torch ops, go to
-    its side stream."""
+    the same staged windows bit-equal after flush_wideband(); every kernel
+    of the pcie receiver's step, and its packing's torch ops, go to its
+    side stream, and its FEC's trellis kernels to the caller's stream,
+    where the FEC runs."""
     from tetra_tpu_torch.ops import _build
+    from tetra_tpu_torch.rx import fec as FEC
     from tetra_tpu_torch.rx import receiver as R
     from tetra_tpu_torch.rx.receiver import TetraReceiver
     from tetra_tpu_torch.tx.wideband import cell_air, staged_windows
@@ -333,24 +341,43 @@ def test_pipelined_matches_sync_on_card(dev):
     assert pcie.wb_pipeline and not tun.wb_pipeline
     staged = staged_windows(cell_air(n, 2.5, 2), pcie._wb["advance"],
                             pcie._wb["wide_len"], k, dev)
-    seen = []
+    seen, in_fec = {False: [], True: []}, [False]
     stream_of, pack = _build.stream_of, R.pack_cycle_tc
+    decode = FEC.decode_rows_typed_packed
 
     def spy_pack(*args):
-        seen.append(torch.cuda.current_stream(dev).cuda_stream)
+        seen[False].append(torch.cuda.current_stream(dev).cuda_stream)
         return pack(*args)
 
+    def spy_decode(*args, **kw):
+        in_fec[0] = True
+        try:
+            return decode(*args, **kw)
+        finally:
+            in_fec[0] = False
+
+    def spy_stream(t):
+        seen[in_fec[0]].append(stream_of(t))
+        return seen[in_fec[0]][-1]
+
+    caller = torch.cuda.current_stream(dev).cuda_stream
+    fec_launches = 0
     try:
-        _build.stream_of = lambda t: seen.append(stream_of(t)) or seen[-1]
-        R.pack_cycle_tc = spy_pack
+        _build.stream_of, R.pack_cycle_tc = spy_stream, spy_pack
+        FEC.decode_rows_typed_packed = spy_decode
         for sb in staged:
-            seen.clear()
+            seen[False].clear()
+            seen[True].clear()
             pcie.process_wideband_staged(*sb)
-            assert len(seen) >= 4 * k and set(seen) == {
+            assert len(seen[False]) >= 4 * k and set(seen[False]) == {
                 pcie._side.cuda_stream}
+            assert set(seen[True]) <= {caller}
+            fec_launches += len(seen[True])
             tun.process_wideband_staged(*sb)
     finally:
         _build.stream_of, R.pack_cycle_tc = stream_of, pack
+        FEC.decode_rows_typed_packed = decode
+    assert fec_launches > 0
     pcie.flush_wideband()
     tun.flush_wideband()
     assert pcie._side.cuda_stream != torch.cuda.default_stream(
@@ -470,3 +497,27 @@ def test_speech_trellis_kernel_matches_plain(dev, R, T):
     on_card = [t.cpu() for t in decode_speech(soft.to(dev), hsoft.to(dev))]
     for a, b in zip(on_card, decode_speech(soft, hsoft)):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("term", ["zero", "truncate"])
+@pytest.mark.parametrize("R", [0, 1, 129])
+@pytest.mark.parametrize("T", [80, 144, 288])
+@pytest.mark.parametrize("code", ["cch", "tch"])
+def test_fec_trellis_kernel_matches_plain(dev, code, T, R, term):
+    """viterbi_decode on the card (one trellis kernel launch) against its
+    plain twin _viterbi on the CPU, bit for bit: soft rows of {-1, 0, +1}
+    whose tails (up to half the row) are padded at the mixed decode's pad
+    amplitude, 4 mother bits a step (cch) and 3 (tch)."""
+    from tetra_tpu_torch.rx import fec as FEC
+    from tetra_tpu_torch.rx import viterbi as V
+    rng = np.random.default_rng(R + T + len(code) + len(term))
+    n = 4 if code == "cch" else 3
+    x = rng.choice([-1.0, 0.0, 1.0], (R, T, n)).astype(np.float32)
+    for row, tail in zip(x, rng.integers(0, T // 2, R)):
+        row[T - tail:] = FEC._MIX_PAD_AMP
+    x = torch.from_numpy(x)
+    launches = FT.trellis.launches
+    got = V.viterbi_decode(x.to(dev), code, term).cpu()
+    assert FT.trellis.launches == launches + 1
+    assert got.shape == (R, T) and got.dtype == torch.uint8
+    assert torch.equal(got, V._viterbi(x, code == "tch", term == "truncate"))

@@ -51,12 +51,22 @@ def rows():
             np.full(n, SCR, np.int64), ks)
 
 
-@pytest.mark.parametrize("code,term", [("cch", "zero"), ("cch", "truncate"),
-                                       ("tch", "zero"), ("tch", "truncate")])
-def test_viterbi_matches_jax(code, term):
-    rng = np.random.default_rng(len(code) + len(term))
+@pytest.mark.parametrize("code,term,T", [
+    pytest.param(code, term, T, id=f"{code}-{term}" + (f"-{T}" if T > 60
+                                                       else ""))
+    for T in (60, 144, 288)
+    for code, term in (("cch", "zero"), ("cch", "truncate"), ("tch", "zero"),
+                       ("tch", "truncate"))])
+def test_viterbi_matches_jax(code, term, T):
+    """The plain twin against the reference on {-1, 0, +1} rows; at the
+    typed FEC's 144 and 288 steps each row's tail (up to half the row) is
+    padded at the mixed decode's pad amplitude, as shorter blocks are."""
+    rng = np.random.default_rng(len(code) + len(term) + T - 60)
     n = 4 if code == "cch" else 3
-    soft = rng.choice([-1.0, 0.0, 1.0], size=(24, 60, n)).astype(np.float32)
+    soft = rng.choice([-1.0, 0.0, 1.0], size=(24, T, n)).astype(np.float32)
+    if T > 60:
+        for row, tail in zip(soft, rng.integers(0, T // 2, len(soft))):
+            row[T - tail:] = TF._MIX_PAD_AMP
     ref = np.asarray(JV.viterbi_decode(jnp.asarray(soft), code, term))
     got = TV.viterbi_decode(torch.from_numpy(soft), code, term).numpy()
     np.testing.assert_array_equal(got, ref)

@@ -2,8 +2,9 @@
 CPU: one record a superblock, fed staged and fed host cf32 one advance a
 call; spans nested inside their parents; the hunting counter against the
 valid counts of the superblock's words; the ingest's copied and uploaded
-bytes against the fed bytes; the tetra.* ranges in a profiler trace, and
-no range made without a profiler; the ring's fixed size."""
+bytes against the fed bytes; no trellis-kernel rows on the CPU; the
+tetra.* ranges in a profiler trace, and no range made without a
+profiler; the ring's fixed size."""
 
 from __future__ import annotations
 
@@ -105,6 +106,20 @@ def test_one_record_a_superblock(air, feed):
     else:
         assert (rec["ingest.upload"] > 0).all()
         assert (rec["calls"][:, S.SPANS.index("ingest.frame")] == 1).all()
+
+
+def test_trellis_rows_read_zero_on_a_cpu_engine(air):
+    """fec.trellis_rows counts the rows the trellis kernel decodes: every
+    record holds it, and a CPU engine, whose FEC takes the kernel's plain
+    twin, reads 0 beside its fec.rows."""
+    rx = _receiver()
+    S.clear()
+    for wr, wi in staged_windows(air, rx._wb["advance"], rx._wb["wide_len"],
+                                 KW, "cpu", count=2):
+        rx.process_wideband_staged(wr, wi)
+    rec = S.records()
+    assert len(rec) == 2 and "fec.trellis_rows" in rec.dtype.names
+    assert (rec["fec.rows"] > 0).all() and not rec["fec.trellis_rows"].any()
 
 
 def test_ingest_bytes_follow_the_buffer_policy(air):

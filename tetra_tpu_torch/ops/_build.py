@@ -84,9 +84,12 @@ def _declare(lib) -> None:
     lib.launch_fold_dft_resample.argtypes = [P] * 16 + [I] * 4 + [P]
     # x, truncate, signs (host), bits | R, T | stream
     lib.launch_speech_trellis.argtypes = [P] * 4 + [I] * 2 + [P]
+    # x, signs (host), bits | R, T, nb, truncate | stream
+    lib.launch_fec_trellis.argtypes = [P] * 3 + [I] * 4 + [P]
     for name in ("launch_agc_fll_rrc", "launch_mm_costas",
                  "launch_fold_dft", "launch_resample",
-                 "launch_fold_dft_resample", "launch_speech_trellis"):
+                 "launch_fold_dft_resample", "launch_speech_trellis",
+                 "launch_fec_trellis"):
         getattr(lib, name).restype = ctypes.c_int
 
 

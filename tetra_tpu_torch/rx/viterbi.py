@@ -3,12 +3,14 @@ viterbi_decode for the TETRA K=5 mother codes (_trellis_tables,
 _acs_tables, _viterbi) and viterbi_decode_generic for any non-recursive
 (n, K <= 8) code with zero, truncated or tail-biting termination.
 
-The 16-state trellis runs over a batch of blocks, one add-compare-select
-step per trellis time as a handful of torch ops (the reference's XLA scan;
-it was never a Pallas kernel).  Branch metrics are small integers (soft
-bits in {-1, 0, +1} and the mixed-decode pad amplitude against +-1 signs),
-so every metric is exact in float32 and decisions are bit-identical to the
-reference whatever the summation order.
+The 16-state trellis runs over a batch of blocks: on a CUDA tensor as one
+kernel launch (ops/fec_trellis, csrc/fec_trellis.cu), elsewhere in its
+plain twin _viterbi, one add-compare-select step per trellis time as a
+handful of torch ops (the reference's XLA scan; it was never a Pallas
+kernel).  Branch metrics are small integers (soft bits in {-1, 0, +1} and
+the mixed-decode pad amplitude against +-1 signs), so every metric is
+exact in float32 and decisions are bit-identical to the reference
+whatever the summation order.
 
 Soft-bit convention: +1 ~ transmitted bit 0, -1 ~ bit 1, 0 ~ punctured.
 """
@@ -21,6 +23,8 @@ import numpy as np
 import torch
 
 from .. import params as P
+from .. import spans as S
+from ..ops import fec_trellis
 
 N_STATES = 16  # K=5 -> 2^(K-1)
 _NEG = -1e9
@@ -102,12 +106,18 @@ def viterbi_decode(soft: torch.Tensor, code: str = "cch",
     soft: (B, T, N) float32 (0 = punctured), N=4 for the data (CCH) code,
     N=3 for the speech (TCH) code.  Returns (B, T) uint8 bits.  term="zero":
     zero-terminated blocks (traceback from state 0); "truncate": traceback
-    from the best-metric end state."""
+    from the best-metric end state.  A CUDA tensor takes the trellis
+    kernel (T <= 288), its rows counted as fec.trellis_rows."""
     use_tch = code == "tch"
     n_out = 3 if use_tch else 4
     if soft.shape[-1] != n_out:
         raise ValueError(f"{code} soft symbols need last dim {n_out}")
-    return _viterbi(soft.to(torch.float32), use_tch, term == "truncate")
+    soft = soft.to(torch.float32)
+    truncate = term == "truncate"
+    if soft.device.type != "cuda":
+        return _viterbi(soft, use_tch, truncate)
+    S.count("fec.trellis_rows", soft.shape[0])
+    return fec_trellis.trellis(soft.contiguous(), truncate)
 
 
 # ---------------------------------------------------------------------------

@@ -52,7 +52,9 @@ Spans (parent in brackets):
                                 their XOR onto the codec frames
           voice.acelp   [voice] the batched ACELP synthesis
 
-Counters: fec.rows (rows handed to the card's FEC), hunt.bits (bits fed
+Counters: fec.rows (rows handed to the card's FEC), fec.trellis_rows
+(rows the trellis kernel decoded, counted where rx/viterbi.viterbi_decode
+launches it; 0 on a CPU device), hunt.bits (bits fed
 to carriers that were unlocked when the superblock's feed began),
 ingest.bytes_fed (IQ bytes given to process_wideband),
 ingest.bytes_copied (bytes the ingest wrote on the host: a dtype cast,
@@ -79,7 +81,8 @@ SPANS = ("ingest", "ingest.buffer", "ingest.frame", "ingest.upload",
 PROFILED = ("frontend", "demod")
 COUNTERS = ("fec.rows", "hunt.bits", "ingest.bytes_fed",
             "ingest.bytes_copied", "ingest.bytes_uploaded", "voice.slots",
-            "voice.halves", "voice.bad_frames", "voice.frames_decrypted")
+            "voice.halves", "voice.bad_frames", "voice.frames_decrypted",
+            "fec.trellis_rows")
 RING_ROWS = 16384
 
 _HEAD = ("seq", "start_ns", "end_ns")
