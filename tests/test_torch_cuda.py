@@ -280,10 +280,11 @@ def test_mesh_superblock_1x1_matches_superblock_scan(dev, tmp_path, n_ch):
         dist.destroy_process_group()
 
 
-def test_chunked_typed_fec_on_card_matches_cpu(dev):
-    """The typed packed FEC on the card, chunked (pinned uploads, fetches
-    on the copy stream) and in one pass, equals the CPU's decode, with one
-    trellis kernel launch a convolutional-coded chunk."""
+def test_chunked_typed_fec_on_card_matches_cpu(dev, monkeypatch):
+    """The typed packed FEC on the card, in one pass and chunked by
+    _MAX_CHUNK_ROWS (pinned uploads, fetches on the copy stream), equals
+    the CPU's decode, with one trellis kernel launch a convolutional-coded
+    chunk."""
     from tetra_tpu_torch import params as P
     from tetra_tpu_torch.rx import fec as FEC
     from tetra_tpu_torch.tx import fec_enc
@@ -310,11 +311,12 @@ def test_chunked_typed_fec_on_card_matches_cpu(dev):
     want = FEC.decode_rows_typed_packed(t5p, types, idx,
                                         torch.from_numpy(ks))
     # 80 SB1/NDB rows and 40 SCH-F rows: one trellis launch a chunk
-    for kw, chunks in ((dict(), 2), (dict(short_bucket=16, schf_bucket=7,
-                                          bbk_bucket=9), 5 + 6)):
+    for rows, chunks in ((0, 2), (16, 5 + 3)):
+        if rows:
+            monkeypatch.setattr(FEC, "_MAX_CHUNK_ROWS", rows)
         n = FT.trellis.launches
         got = FEC.decode_rows_typed_packed(
-            t5p, types, idx, torch.from_numpy(ks).to(dev), **kw)
+            t5p, types, idx, torch.from_numpy(ks).to(dev))
         assert FT.trellis.launches == n + chunks
         np.testing.assert_array_equal(got[1], want[1])
         np.testing.assert_array_equal(got[0], want[0])
@@ -323,7 +325,7 @@ def test_chunked_typed_fec_on_card_matches_cpu(dev):
 
 def test_pipelined_matches_sync_on_card(dev):
     """8 carriers: the pcie receiver (superblock step on its side stream,
-    output through pinned buffers, chunked FEC) and its tunnel twin decode
+    output through pinned buffers) and its tunnel twin decode
     the same staged windows bit-equal after flush_wideband(); every kernel
     of the pcie receiver's step, and its packing's torch ops, go to its
     side stream, and its FEC's trellis kernels to the caller's stream,

@@ -96,11 +96,19 @@ def test_decode_rows_typed_packed_matches_jax(rows):
 
 
 def test_decode_rows_mixed_matches_jax(rows):
-    t5, types, _, scr, _ = rows
+    """The port's one fleet program decodes as the reference's unpacked
+    decode_rows_mixed, on each row's packed type-1 bytes (a short row's
+    whole 16-byte head)."""
+    t5, types, idx, scr, ks = rows
     want_t1, want_ok = JF.decode_rows_mixed(t5, types, scr)
-    got_t1, got_ok = TF.decode_rows_mixed(t5, types, scr, "cpu")
+    want_t1 = np.packbits(np.pad(want_t1, ((0, 0), (0, 4))), axis=1)
+    got_t1, got_ok = TF.decode_rows_typed_packed(
+        np.packbits(t5, axis=1), types, idx, torch.from_numpy(ks))
     np.testing.assert_array_equal(got_ok, want_ok)
-    np.testing.assert_array_equal(got_t1, want_t1)
+    for r, bt in enumerate(types):
+        nb = 34 if bt == P.TPSAP_T_SCH_F else (
+            2 if bt == P.TPSAP_T_BBK else 16)
+        np.testing.assert_array_equal(got_t1[r, :nb], want_t1[r, :nb])
 
 
 def test_crc_and_rm_match_jax():

@@ -1,8 +1,10 @@
 """The port's fleet engine and pipelined fleet receiver against tetra_tpu's
-on the CPU: the split, typed and mixed packed FEC with and without chunking,
-FleetEngine's full signature (FEC program, buckets, worker threads, link
-profile) and accessors, and TetraReceiver's superblock pipeline
-(wb_pipeline, link_profile="pcie") with its one-superblock lag and
+on the CPU: the port's one packed FEC program, in one pass and chunked,
+against each of the reference's packed programs (split, typed, mixed) and
+its unpacked fallback at their bucket sizes; FleetEngine (worker threads,
+link profile, accessors, more than 15 cells in a batch) against the
+reference's engine on each of its FEC programs; and TetraReceiver's
+superblock pipeline (link_profile="pcie") with its one-superblock lag and
 flush_wideband().  Each test is the counterpart of one in
 tests/test_fleet.py (named in its docstring); JAX runs on the CPU.
 
@@ -76,41 +78,65 @@ def packed_rows():
 def _both(name, rows, **kw):
     t5p, types, idx, ks = rows
     want = getattr(JF, name)(t5p, types, idx, jnp.asarray(ks), **kw)
-    got = getattr(TF, name)(t5p, types, idx, torch.from_numpy(ks), **kw)
+    got = getattr(TF, name)(t5p, types, idx, torch.from_numpy(ks))
     np.testing.assert_array_equal(got[1], want[1])
     np.testing.assert_array_equal(got[0], want[0])
     return got
 
 
+# the leading bytes of a row's packed type-1 bits that every program
+# decodes alike (a short row's whole 16-byte head)
+T1_BYTES = {P.TPSAP_T_SB1: 16, P.TPSAP_T_BBK: 2, P.TPSAP_T_SB2: 16,
+            P.TPSAP_T_NDB: 16, P.TPSAP_T_SCH_F: 34}
+
+
+def _assert_same_t1(got, want, types):
+    """Equal CRC flags, and equal type-1 bytes row by row."""
+    np.testing.assert_array_equal(got[1], want[1])
+    for r, bt in enumerate(types):
+        nb = T1_BYTES[int(bt)]
+        np.testing.assert_array_equal(got[0][r, :nb], want[0][r, :nb])
+
+
+def _chunk_at(monkeypatch, rows: int) -> None:
+    """Chunk the port's decode at `rows` rows a pass (0: one pass)."""
+    if rows:
+        monkeypatch.setattr(TF, "_MAX_CHUNK_ROWS", rows)
+
+
 @pytest.mark.parametrize("cch, bbk", [(0, 0), (8, 4)])
 def test_decode_rows_split_packed_matches_mixed_and_jax(packed_rows, cch,
-                                                        bbk):
-    """test_fleet.py:242: the split programs (full-width CCH, RM(30,14))
-    equal the mixed program, unchunked and chunked over buckets smaller
-    than the batch, and equal the reference's split decode."""
-    got = _both("decode_rows_split_packed", packed_rows, cch_bucket=cch,
-                bbk_bucket=bbk)
+                                                        bbk, monkeypatch):
+    """test_fleet.py:242: the port's one program, in one pass or chunked
+    at the CCH bucket, decodes as the reference's split programs
+    (full-width CCH, RM(30,14)), unchunked and chunked over buckets smaller
+    than the batch."""
     t5p, types, idx, ks = packed_rows
-    mixed = TF.decode_rows_mixed_packed(t5p, types, idx,
-                                        torch.from_numpy(ks))
-    np.testing.assert_array_equal(got[0], mixed[0])
-    np.testing.assert_array_equal(got[1], mixed[1])
+    _chunk_at(monkeypatch, cch)
+    want = JF.decode_rows_split_packed(t5p, types, idx, jnp.asarray(ks),
+                                       cch_bucket=cch, bbk_bucket=bbk)
+    got = TF.decode_rows_typed_packed(t5p, types, idx, torch.from_numpy(ks))
+    _assert_same_t1(got, want, types)
     assert 0 < got[1].sum() < len(types)
 
 
 @pytest.mark.parametrize("bucket", [0, 8, 21])
-def test_decode_rows_mixed_packed_chunking(bucket):
-    """test_fleet.py:468: min_bucket smaller than the batch chunks it with
-    the same results, equal to the reference's."""
+def test_decode_rows_mixed_packed_chunking(bucket, monkeypatch):
+    """test_fleet.py:468: the port's program chunked by _MAX_CHUNK_ROWS
+    decodes as in one pass, and as the reference's mixed program chunked
+    by min_bucket."""
     rng = np.random.default_rng(13)
     ks = np.zeros((16, 432), np.uint8)
     ks[0] = JF.keystream(P.SCRAMB_INIT, 432)
     n = 21
     rows = (rng.integers(0, 256, (n, 54)).astype(np.uint8),
-            rng.integers(0, 4, n).astype(np.int64), np.zeros(n, np.int32),
-            ks)
-    got = _both("decode_rows_mixed_packed", rows, min_bucket=bucket)
-    one = TF.decode_rows_mixed_packed(*rows[:3], torch.from_numpy(ks))
+            rng.integers(0, 4, n).astype(np.int64), np.zeros(n, np.int32))
+    one = TF.decode_rows_typed_packed(*rows, torch.from_numpy(ks))
+    _chunk_at(monkeypatch, bucket)
+    got = TF.decode_rows_typed_packed(*rows, torch.from_numpy(ks))
+    want = JF.decode_rows_mixed_packed(*rows, jnp.asarray(ks),
+                                       min_bucket=bucket)
+    _assert_same_t1(got, want, rows[1])
     np.testing.assert_array_equal(got[0], one[0])
     np.testing.assert_array_equal(got[1], one[1])
 
@@ -118,33 +144,33 @@ def test_decode_rows_mixed_packed_chunking(bucket):
 @pytest.mark.parametrize("short, schf, bbk", [(0, 0, 0), (8, 4, 4),
                                               (5, 1, 3)])
 def test_decode_rows_typed_packed_matches_mixed_and_jax(packed_rows, short,
-                                                        schf, bbk):
-    """test_fleet.py:488: the typed programs, chunked or not, equal the
-    reference's typed decode byte for byte, and the mixed program on each
-    row's type-1 bytes (a short row's whole 16-byte head)."""
+                                                        schf, bbk,
+                                                        monkeypatch):
+    """test_fleet.py:488: the port's program, in one pass or chunked at
+    the short bucket, equals the reference's typed decode at each bucket
+    triple byte for byte, and the mixed program (_decode_mixed_packed) on
+    each row's type-1 bytes."""
+    _chunk_at(monkeypatch, short)
     got = _both("decode_rows_typed_packed", packed_rows, short_bucket=short,
                 schf_bucket=schf, bbk_bucket=bbk)
     t5p, types, idx, ks = packed_rows
-    want = TF.decode_rows_mixed_packed(t5p, types, idx, torch.from_numpy(ks))
-    np.testing.assert_array_equal(got[1], want[1])
-    nbytes = {P.TPSAP_T_SB1: 16, P.TPSAP_T_BBK: 2, P.TPSAP_T_SB2: 16,
-              P.TPSAP_T_NDB: 16, P.TPSAP_T_SCH_F: 34}
-    for r, bt in enumerate(types):
-        nb = nbytes[int(bt)]
-        np.testing.assert_array_equal(got[0][r, :nb], want[0][r, :nb])
+    t = torch.from_numpy
+    mixed = TF._decode_mixed_packed(t(t5p), t(ks), t(idx),
+                                    t(TF._MIX_TSEL_OF[types])).numpy()
+    _assert_same_t1(got, (mixed[:, :34], mixed[:, 34].astype(bool)), types)
 
 
 @pytest.mark.parametrize("min_bucket", [0, 64])
 def test_decode_rows_mixed_min_bucket(packed_rows, min_bucket):
-    """decode_rows_mixed takes the reference's min_bucket (a padding size
-    there, nothing here) and decodes as the reference does."""
-    t5p, types, _, _ = packed_rows
+    """The port's program on packed rows decodes as the reference's
+    unpacked decode_rows_mixed at its min_bucket (a padding size there)."""
+    t5p, types, idx, ks = packed_rows
     t5 = np.unpackbits(t5p, axis=1)[:, :432]
     scr = np.full(len(types), P.scramb_get_init(262, 4321, 3), np.int64)
-    want = JF.decode_rows_mixed(t5, types, scr, min_bucket=min_bucket)
-    got = TF.decode_rows_mixed(t5, types, scr, "cpu", min_bucket=min_bucket)
-    np.testing.assert_array_equal(got[0], want[0])
-    np.testing.assert_array_equal(got[1], want[1])
+    t1, ok = JF.decode_rows_mixed(t5, types, scr, min_bucket=min_bucket)
+    want = (np.packbits(np.pad(t1, ((0, 0), (0, 4))), axis=1), ok)
+    got = TF.decode_rows_typed_packed(t5p, types, idx, torch.from_numpy(ks))
+    _assert_same_t1(got, want, types)
 
 
 # -- the fleet engine -------------------------------------------------------
@@ -204,22 +230,70 @@ def voice_feed():
 
 @pytest.mark.parametrize("kind", ["split", "mixed"])
 def test_fleet_engine_fec_programs_match_typed_and_jax(voice_feed, kind):
-    """test_fleet.py:539: an engine on the split (or the mixed) FEC
-    program decodes exactly as the typed default, in both packages."""
+    """test_fleet.py:539: the port's engine, on its one FEC program, ends
+    in the state of the reference's engine on its split (or its mixed)
+    program."""
     kw = dict(split_fec=True) if kind == "split" else dict(typed_fec=False)
     C = voice_feed.shape[0]
-    typed = FleetEngine(C, "cpu")
-    other = FleetEngine(C, "cpu", **kw)
+    port = FleetEngine(C, "cpu")
     ref = JaxEngine(C, **kw)
-    assert typed.typed_fec and not other.typed_fec
-    assert other.split_fec == ref.split_fec == (kind == "split")
+    assert not ref.typed_fec and ref.split_fec == (kind == "split")
     for i in range(0, voice_feed.shape[1], 2400):
-        for f in (typed, other, ref):
+        for f in (port, ref):
             f.process_packed(voice_feed[:, i:i + 2400])
-    _assert_same_engine(other, typed, C)
-    _assert_same_engine(other, ref, C)
+    _assert_same_engine(port, ref, C)
     for c in range(C):
-        assert typed.locked(c) and typed.crc_counts(c)[0] > 0, c
+        assert port.locked(c) and port.crc_counts(c)[0] > 0, c
+
+
+@pytest.mark.parametrize("entry", ["process_packed_cycles",
+                                   "process_packed2"])
+def test_fleet_engine_past_fifteen_cells_matches_jax(monkeypatch, entry):
+    """17 carriers of 17 cells: once locked, a batch holds 17 scrambling
+    codes besides SCRAMB_INIT.  The reference's engine decodes it through
+    its unpacked fallback (rx/fec.decode_rows_mixed), the port's through
+    its one program; both end in the same state, on either feed entry."""
+    C, K, n_chunks = 17, 4, 75
+    T = n_chunks * 32
+    streams = []
+    for c in range(C):
+        bits, _ = cell.downlink_bits(
+            cell.CellConfig(mcc=262, mnc=60 + c, cc=1 + c),
+            2 * (K * T) // 255 + 4, start=START)
+        streams.append(((bits[0::2] << 1) | bits[1::2]).astype(np.uint8))
+    dibm = np.stack([s[:K * T] for s in streams])
+    packed = (dibm & 3) | 0x80
+    feed = {"process_packed_cycles": lambda f: f.process_packed_cycles(
+                np.stack([packed[:, j * T:(j + 1) * T]
+                          for j in range(1, K)])),
+            "process_packed2": lambda f: f.process_packed2(
+                _pack_words(dibm[:, T:], np.ones_like(dibm[:, T:], bool),
+                            K - 1, n_chunks), K - 1, n_chunks)}[entry]
+    codes, fallbacks = [], []
+    decode, mixed = TF.decode_rows_typed_packed, JF.decode_rows_mixed
+
+    def spy_decode(t5p, blk_types, scramb_idx, ks_table):
+        codes.append(len(np.unique(scramb_idx[scramb_idx > 0])))
+        assert ks_table.shape[0] > int(scramb_idx.max())
+        return decode(t5p, blk_types, scramb_idx, ks_table)
+
+    def spy_mixed(*args, **kw):
+        fallbacks.append(len(args[0]))
+        return mixed(*args, **kw)
+
+    monkeypatch.setattr(TF, "decode_rows_typed_packed", spy_decode)
+    monkeypatch.setattr(JF, "decode_rows_mixed", spy_mixed)
+    port, ref = FleetEngine(C, "cpu"), JaxEngine(C)
+    n = set()
+    for f in (port, ref):
+        f.process_packed(packed[:, :T])
+        n.add(feed(f))
+    assert len(n) == 1 and n.pop() > 0
+    assert max(codes) >= 16 and fallbacks, (codes, fallbacks)
+    _assert_same_engine(port, ref, C)
+    assert len({port.scramb[c] for c in range(C)}) == C
+    for c in range(C):
+        assert port.locked(c) and port.crc_counts(c)[0] > 0, c
 
 
 def test_fleet_threads_bitexact_and_accessors_match_jax():
@@ -316,10 +390,9 @@ def test_no_native_mac_switch_stops_the_fleet_as_in_jax(monkeypatch, what):
                                                  (0, 6400, 1)])
 def test_receiver_engine_configuration_matches_jax(profile, wideband, t50,
                                                    wb_k):
-    """The receiver sizes its engine's FEC chunks and passes its link
-    profile as the reference does; "pcie" pipelines the superblocks
-    (when wb_k > 1) and puts worker threads on every core, "tunnel" on
-    every core but one."""
+    """The receiver passes its link profile to its engine as the reference
+    does; "pcie" pipelines the superblocks (when wb_k > 1) and puts worker
+    threads on every core, "tunnel" on every core but one."""
     kw = dict(wideband=wideband, t50=t50, wb_k=wb_k, fleet=True,
               link_profile=profile)
     if not wideband:
@@ -328,31 +401,27 @@ def test_receiver_engine_configuration_matches_jax(profile, wideband, t50,
     ref = JaxReceiver(events=False, **kw)
     assert got.wb_pipeline == ref.wb_pipeline == (profile == "pcie"
                                                   and wb_k > 1)
-    g, r = got.fleet, ref.fleet
-    for k in ("link_profile", "pad_rows", "typed_fec", "split_fec",
-              "short_bucket", "schf_bucket", "cch_bucket", "bbk_bucket"):
-        assert getattr(g, k) == getattr(r, k), k
+    assert got.fleet.link_profile == ref.fleet.link_profile == profile
     cores = os.cpu_count()
-    assert g.threads == (cores if profile == "pcie" else max(1, cores - 1))
+    assert got.fleet.threads == (cores if profile == "pcie"
+                                 else max(1, cores - 1))
 
 
 def test_pcie_halves_the_typed_buckets_and_overrides():
-    """The pcie engine's typed chunks are half the tunnel's; an explicit
-    wb_pipeline= overrides the profile; TETRA_FLEET_THREADS and threads=
-    override the profile's thread count, threads= first."""
+    """link_profile is the one switch of the pipeline: "pcie" with wb_k > 1
+    pipelines, nothing else does, and no wb_pipeline= argument is taken;
+    TETRA_FLEET_THREADS and threads= override the profile's thread count,
+    threads= first."""
     pcie = TetraReceiver(wideband=N, fleet=True, wb_k=KW, link_profile="pcie",
                          device="cpu")
     tun = TetraReceiver(wideband=N, fleet=True, wb_k=KW, device="cpu")
     assert pcie.wb_pipeline and not tun.wb_pipeline
-    assert pcie.fleet.short_bucket == tun.fleet.short_bucket // 2
-    assert pcie.fleet.schf_bucket < tun.fleet.schf_bucket
-    assert not TetraReceiver(wideband=N, fleet=True, wb_k=KW,
-                             link_profile="pcie", wb_pipeline=False,
-                             device="cpu").wb_pipeline
-    assert TetraReceiver(wideband=N, fleet=True, wb_k=KW, wb_pipeline=True,
-                         device="cpu").wb_pipeline
+    assert pcie.fleet.threads == tun.fleet.threads + (os.cpu_count() > 1)
     assert not TetraReceiver(wideband=N, fleet=True, link_profile="pcie",
                              device="cpu").wb_pipeline       # wb_k = 1
+    with pytest.raises(TypeError, match="wb_pipeline"):
+        TetraReceiver(wideband=N, fleet=True, wb_k=KW, wb_pipeline=True,
+                      device="cpu")
     old = os.environ.get("TETRA_FLEET_THREADS")
     os.environ["TETRA_FLEET_THREADS"] = "2"
     try:
@@ -391,22 +460,20 @@ def _counts(rx):
 def runs(tmp_path_factory):
     """The same superblock feeds into: the pcie receiver (flushed twice
     mid-stream, checkpointed once with a superblock pending), its tunnel
-    twin, a tunnel-profile receiver with wb_pipeline=True, and the
-    reference's pipelined receiver; each flushed at the end.  Also the
-    CRC tallies of the pcie receiver and its twin after every feed."""
+    twin and the reference's pipelined receiver; each flushed at the end.
+    Also the CRC tallies of the pcie receiver and its twin after every
+    feed."""
     wide = cell_pair_air(N, SLOTS)
     pcie = TetraReceiver(wideband=N, fleet=True, wb_k=KW, link_profile="pcie",
                          device="cpu")
     tunnel = TetraReceiver(wideband=N, fleet=True, wb_k=KW, device="cpu")
-    piped = TetraReceiver(wideband=N, fleet=True, wb_k=KW, wb_pipeline=True,
-                          device="cpu")
     ref = JaxReceiver(wideband=N, fleet=True, events=False, wb_k=KW,
                       wb_pipeline=True)
     chunks = _chunks(pcie, wide)
     ckpt = str(tmp_path_factory.mktemp("fleet") / "pending.npz")
     steps = []
     for s, chunk in enumerate(chunks):
-        for rx in (pcie, tunnel, piped, ref):
+        for rx in (pcie, tunnel, ref):
             rx.process_wideband(chunk)
         if s in FLUSHED_AT:
             pcie.flush_wideband()
@@ -414,9 +481,9 @@ def runs(tmp_path_factory):
         if s == CKPT_AT:
             pcie.save_state(ckpt)
         steps.append((_counts(pcie), _counts(tunnel)))
-    for rx in (pcie, tunnel, piped, ref):
+    for rx in (pcie, tunnel, ref):
         rx.flush_wideband()
-    return dict(pcie=pcie, tunnel=tunnel, piped=piped, ref=ref, steps=steps,
+    return dict(pcie=pcie, tunnel=tunnel, ref=ref, steps=steps,
                 chunks=chunks, ckpt=ckpt)
 
 
@@ -430,9 +497,9 @@ def _assert_same_receivers(a, b):
 
 
 def test_pcie_profile_matches_tunnel_twin(runs):
-    """test_fleet.py:702: the full pcie configuration (pipelined, halved
-    typed chunks, worker threads on every core) decodes after flush
-    exactly as its tunnel twin, which pipelines nothing."""
+    """test_fleet.py:702: the full pcie configuration (pipelined, worker
+    threads on every core) decodes after flush exactly as its tunnel
+    twin, which pipelines nothing."""
     pcie, tunnel = runs["pcie"], runs["tunnel"]
     assert pcie.wb_pipeline and not tunnel.wb_pipeline
     assert len(runs["chunks"]) >= 6
@@ -445,11 +512,12 @@ def test_pcie_profile_matches_tunnel_twin(runs):
 
 
 def test_pipelined_matches_sync_and_jax_after_flush(runs):
-    """test_fleet.py:431: wb_pipeline=True defers each superblock's
-    decode by one feed; after flush_wideband() it equals the synchronous
-    receiver, and the reference's pipelined receiver, on every channel."""
-    piped, tunnel, ref = runs["piped"], runs["tunnel"], runs["ref"]
-    assert piped.wb_pipeline and piped.link_profile == "tunnel"
+    """test_fleet.py:431: the pipelined (pcie) receiver defers each
+    superblock's decode by one feed; after flush_wideband() it equals the
+    synchronous receiver, and the reference's pipelined receiver, on every
+    channel."""
+    piped, tunnel, ref = runs["pcie"], runs["tunnel"], runs["ref"]
+    assert piped.wb_pipeline and ref.wb_pipeline
     _assert_same_receivers(piped, tunnel)
     _assert_same_receivers(piped, ref)
     np.testing.assert_allclose(piped.sym_quality, ref.sym_quality, atol=2e-3)

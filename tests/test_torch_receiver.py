@@ -195,8 +195,8 @@ def test_invalid_mode_combinations_raise(kw, match):
 def test_reference_call_forms():
     """The constructor calls of the reference's CLI (apps/tetra_rx.py: the
     default per-channel receiver and --fleet with --link-profile), of its
-    bench_e2e (events=False, wb_pipeline=False/None) and of its README
-    (TetraReceiver(channels=16)) run on the port."""
+    bench_e2e (events=False; its wb_pipeline is link_profile="pcie" here)
+    and of its README (TetraReceiver(channels=16)) run on the port."""
     cb = lambda time, type4: None
     rx = TetraReceiver(16, voice_cb=cb, mode="fast", events=False,
                        wideband=0, device="cpu")
@@ -212,10 +212,10 @@ def test_reference_call_forms():
                            wideband=8, fleet=True, wb_k=2,
                            link_profile=profile, device="cpu")
         assert rx.fleet is not None and rx.link_profile == profile
-    for pipeline in (False, None, True):
+    for profile in ("tunnel", "pcie"):
         rx = TetraReceiver(wideband=8, t50=1600, fleet=True, events=False,
-                           wb_k=2, wb_pipeline=pipeline, device="cpu")
-        assert rx.wb_pipeline == bool(pipeline)
+                           wb_k=2, link_profile=profile, device="cpu")
+        assert rx.wb_pipeline == (profile == "pcie")
     # events=True is ignored in fleet mode, as the reference's fleet
     # implies events=False
     TetraReceiver(wideband=8, fleet=True, events=True, device="cpu")

@@ -388,10 +388,9 @@ def main(argv=None):
                          "double-buffers the superblocks when --wb-k > 1 "
                          "(the device step on a side CUDA stream while the "
                          "host decodes the previous one; the summary then "
-                         "lacks the last superblock, as in the JAX CLI), "
-                         "halves the typed-FEC chunks so fetches overlap "
-                         "the trellis, and puts fleet workers on every "
-                         "core; tunnel keeps one chunk and cores-1 workers")
+                         "lacks the last superblock, as in the JAX CLI) "
+                         "and puts fleet workers on every core; tunnel "
+                         "runs superblocks in turn with cores-1 workers")
     ap.add_argument("--wb-k", type=int, default=1, metavar="K",
                     help="with --fleet --wideband: superblock depth "
                          "(demod cycles per device dispatch+fetch; "

@@ -2,25 +2,21 @@
 depuncture, Viterbi, CRC-16 and RM(30,14), for whole batches of rows in
 one pass on the device of the rows (or of the keystream table).
 
-Ported: the per-type block decode (decode_block), the fused mixed-type
+Ported: the per-type block decode (decode_block); the fused mixed-type
 decode the per-channel receiver runs once per cycle (decode_blocks_mixed),
-and the fleet engine's three packed decodes, chosen by FleetEngine as the
-reference chooses them: by row type (decode_rows_typed_packed, the
-default: SB1/SB2/NDB rows on a 144-step trellis, SCH-F rows on 288 steps,
-BBK rows by RM(30,14)), CCH vs BBK at full width (decode_rows_split_packed)
-and every row in the one mixed program (decode_rows_mixed_packed, whose
-program _decode_mixed_packed the row-sharded FEC also runs); and the
-unpacked mixed decode the fleet falls back to when one cycle holds more
-than 15 cells (decode_rows_mixed).
+whose packed program _decode_mixed_packed the row-sharded FEC runs
+(parallel/mesh.sharded_fec_decode); and the fleet engine's packed decode
+by row type (decode_rows_typed_packed): SB1/SB2/NDB rows on a 144-step
+trellis, SCH-F rows on 288 steps, BBK rows by RM(30,14).
 
-The packed decodes take the reference's bucket sizes as CHUNK sizes: a
-batch larger than a bucket runs as several calls of its program, every
+The fleet decode takes each row kind in one pass.  Nothing is padded (the
+reference pads batches to bucket sizes to keep compiled XLA shapes, which
+eager PyTorch does not have): every call decodes exactly its rows.  Only
+a kind of more than _MAX_CHUNK_ROWS rows runs as several passes, every
 chunk uploaded and enqueued before any result is fetched (on CUDA the
 fetches run on a second stream, so chunk j's copy overlaps chunk j+1's
-trellis).  The reference also pads each chunk up to its bucket, to keep
-one compiled XLA shape; eager PyTorch has no compiled shapes, so nothing
-is padded: every call decodes exactly its rows.  Results, in input row
-order, are bit-exact vs the reference for any bucket.
+trellis).  Results, in input row order, are bit-exact vs the reference's
+fleet programs on every row's type-1 bits.
 """
 
 from __future__ import annotations
@@ -289,30 +285,8 @@ def decode_blocks_mixed(blocks: list[tuple[int, np.ndarray, int]], device
     return [(type1[j, :t1s[j]], bool(ok[j])) for j in range(B)]
 
 
-def decode_rows_mixed(t5: np.ndarray, blk_types: np.ndarray,
-                      scrambs: np.ndarray, device, min_bucket: int = 0
-                      ) -> tuple[np.ndarray, np.ndarray]:
-    """t5: (N, 432) uint8 type-5 rows zero-padded past each type's length;
-    blk_types/scrambs: (N,).  Returns (type1 (N, 268) uint8, ok (N,) bool),
-    decoded on `device` in one pass.  SB1 rows use SCRAMB_INIT whatever
-    scramb says.  min_bucket is accepted as the reference's: there it only
-    pads the batch to one compiled shape, which eager PyTorch does not
-    need, so it changes nothing here."""
-    tsel = _MIX_TSEL_OF[np.asarray(blk_types, np.int64)]
-    if (tsel < 0).any():
-        raise ValueError("row type outside the mixed decode's variant table")
-    scrambs = np.where(np.asarray(blk_types) == P.TPSAP_T_SB1,
-                       P.SCRAMB_INIT, np.asarray(scrambs))
-    ksm = np.empty((len(tsel), _MIX_T345), np.uint8)
-    for s in np.unique(scrambs):
-        ksm[scrambs == s] = keystream(int(s), _MIX_T345)
-    to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
-    type1, ok = _decode_mixed_core(to(t5), to(ksm), to(tsel))
-    return type1[:, :_MIX_T1].cpu().numpy(), ok.cpu().numpy()
-
-
 # ---------------------------------------------------------------------------
-# Type-split packed decode (the fleet's per-cycle FEC)
+# Packed decode by row type (the fleet's per-superblock FEC)
 # ---------------------------------------------------------------------------
 
 _SHORT_T345 = 216              # max type-5 bits over SB1/SB2/NDB
@@ -350,7 +324,7 @@ def _pack_t1(type1pad: torch.Tensor, ok: torch.Tensor) -> torch.Tensor:
 
 def _decode_mixed_packed(t5p, ks_table, scramb_idx, tsel):
     """The mixed decode on packed rows, on the rows' device: t5p (B, 54)
-    uint8 MSB-first type-5 rows, scramb_idx (B,) slots of the (16, 432)
+    uint8 MSB-first type-5 rows, scramb_idx (B,) rows of the (S, 432)
     keystream table, tsel (B,) variant ids -> (B, 35) uint8 [packed type1
     | ok].  The program of the reference's row-sharded FEC
     (parallel/mesh.sharded_fec_decode)."""
@@ -398,32 +372,28 @@ def _decode_bbk_packed(t5p4, ks_table, scramb_idx):
     return _pack_t1(torch.cat([info14, pad], dim=1), ok)
 
 
-def _decode_cch_packed(t5p, ks_table, scramb_idx, tsel):
-    """SB1/NDB/SCH-F rows at full width (the split decode's CCH program):
-    (B, 54) packed rows, every variant padded to 288 trellis steps;
-    (B, 35) output."""
-    type4 = _unpack_rows(t5p, _MIX_T345) ^ _ks_from_table(ks_table,
-                                                          scramb_idx)
-    type1, ok = _decode_cch_core(type4, tsel)
-    pad = type1.new_zeros((type1.shape[0], _T1_BYTES * 8 - _MIX_T1))
-    return _pack_t1(torch.cat([type1, pad], dim=1), ok)
-
-
 # ---------------------------------------------------------------------------
-# Chunked dispatch of the packed programs
+# Dispatch of the packed programs
 # ---------------------------------------------------------------------------
+
+# The most rows of one kind decoded in one pass: a bound on one pass's
+# device memory, not a tuning.  A steady superblock stays below it (148,030
+# rows at 1024 carriers); the warm-up may pass it, when carriers lock with
+# their whole bit backlog (the engine's row buffer holds three rows a slot
+# of a channel's 1<<16-bit ring).
+_MAX_CHUNK_ROWS = 1 << 18
 
 _COPY_STREAMS: dict = {}
 
 
-def _chunks(rows: np.ndarray, bucket: int) -> list:
-    """rows in chunks of `bucket` (0: one chunk)."""
-    step = bucket or max(1, len(rows))
-    return [rows[s:s + step] for s in range(0, len(rows), step)]
+def _chunks(rows: np.ndarray) -> list:
+    """rows in chunks of at most _MAX_CHUNK_ROWS."""
+    return [rows[s:s + _MAX_CHUNK_ROWS]
+            for s in range(0, len(rows), _MAX_CHUNK_ROWS)]
 
 
 class _Dispatch:
-    """One batch's chunked programs on `dev`: up() uploads a chunk's rows,
+    """One batch's programs on `dev`: up() uploads a chunk's rows,
     fetch() queues a chunk's result for the host, wait() returns after
     every queued fetch has landed.  On CUDA an upload is a non-blocking
     copy from pinned memory on the current stream, and each fetch a
@@ -464,42 +434,34 @@ class _Dispatch:
                 self.copy.synchronize()
 
 
-def _packed_rows(blk_types, scramb_idx):
-    """Variant ids and keystream slots per row (SB1 rows: slot 0)."""
+def decode_rows_typed_packed(t5p: np.ndarray, blk_types: np.ndarray,
+                             scramb_idx: np.ndarray, ks_table: torch.Tensor
+                             ) -> tuple[np.ndarray, np.ndarray]:
+    """Packed decode by row type on ks_table's device: t5p (N, 54) packed
+    type-5 rows, scramb_idx (N,) rows of the (S, 432) keystream table
+    (row 0 = SCRAMB_INIT; SB1 rows are forced to it).  SB1/SB2/NDB rows
+    upload 27 bytes and fetch 17, SCH-F rows 54 and 35, BBK rows 4 and 35,
+    each kind in one pass (_chunks), every pass enqueued before any is
+    fetched.  Returns (packed type1 (N, 34) uint8, ok (N,) bool) in input
+    row order."""
+    N = len(blk_types)
     tsel = _MIX_TSEL_OF[np.asarray(blk_types, np.int64)]
     if (tsel < 0).any():
         raise ValueError("row type outside the mixed decode's variant table")
     idx = np.where(np.asarray(blk_types) == P.TPSAP_T_SB1, 0,
                    np.asarray(scramb_idx)).astype(np.int64)
-    return tsel, idx
-
-
-def decode_rows_typed_packed(t5p: np.ndarray, blk_types: np.ndarray,
-                             scramb_idx: np.ndarray, ks_table: torch.Tensor,
-                             short_bucket: int = 0, schf_bucket: int = 0,
-                             bbk_bucket: int = 0
-                             ) -> tuple[np.ndarray, np.ndarray]:
-    """Packed decode by row type on ks_table's device: t5p (N, 54) packed
-    type-5 rows, scramb_idx (N,) slots of the (16, 432) keystream table
-    (slot 0 = SCRAMB_INIT; SB1 rows are forced to it).  SB1/SB2/NDB rows
-    upload 27 bytes and fetch 17, SCH-F rows 54 and 35, BBK rows 4 and 35,
-    each kind in chunks of its bucket (0: one chunk), every chunk enqueued
-    before any is fetched.  Returns (packed type1 (N, 34) uint8, ok (N,)
-    bool) in input row order."""
-    N = len(blk_types)
-    tsel, idx = _packed_rows(blk_types, scramb_idx)
     d = _Dispatch(ks_table.device)
     out = np.zeros((N, _T1_BYTES + 1), np.uint8)
     pend = []
     si = np.nonzero((tsel == _MIX_SB1) | (tsel == _MIX_NDB))[0]
-    for rows in _chunks(si, short_bucket):
+    for rows in _chunks(si):
         pend.append((rows, True, d.fetch(_decode_short_packed(
             d.up(t5p[rows, :_SHORT_T5_BYTES]), ks_table, d.up(idx[rows]),
             d.up(tsel[rows])))))
-    for rows in _chunks(np.nonzero(tsel == _MIX_SCHF)[0], schf_bucket):
+    for rows in _chunks(np.nonzero(tsel == _MIX_SCHF)[0]):
         pend.append((rows, False, d.fetch(_decode_schf_packed(
             d.up(t5p[rows]), ks_table, d.up(idx[rows])))))
-    for rows in _chunks(np.nonzero(tsel == _MIX_BBK)[0], bbk_bucket):
+    for rows in _chunks(np.nonzero(tsel == _MIX_BBK)[0]):
         pend.append((rows, False, d.fetch(_decode_bbk_packed(
             d.up(t5p[rows, :4]), ks_table, d.up(idx[rows])))))
     d.wait()
@@ -510,53 +472,4 @@ def decode_rows_typed_packed(t5p: np.ndarray, blk_types: np.ndarray,
             out[rows, _T1_BYTES] = r[:, _SHORT_T1_BYTES]
         else:
             out[rows] = r
-    return out[:, :_T1_BYTES], out[:, _T1_BYTES].astype(bool)
-
-
-def decode_rows_split_packed(t5p: np.ndarray, blk_types: np.ndarray,
-                             scramb_idx: np.ndarray, ks_table: torch.Tensor,
-                             cch_bucket: int = 0, bbk_bucket: int = 0
-                             ) -> tuple[np.ndarray, np.ndarray]:
-    """Packed decode split by kind (FleetEngine(split_fec=True)): the
-    SB1/SB2/NDB/SCH-F rows through the full-width CCH program (288 trellis
-    steps each), the BBK rows through RM(30,14), each kind in chunks of its
-    bucket (0: one chunk), every chunk enqueued before any is fetched.
-    Arguments and result as decode_rows_typed_packed's."""
-    N = len(blk_types)
-    tsel, idx = _packed_rows(blk_types, scramb_idx)
-    d = _Dispatch(ks_table.device)
-    out = np.empty((N, _T1_BYTES + 1), np.uint8)
-    pend = []
-    is_bbk = tsel == _MIX_BBK
-    for rows in _chunks(np.nonzero(~is_bbk)[0], cch_bucket):
-        pend.append((rows, d.fetch(_decode_cch_packed(
-            d.up(t5p[rows]), ks_table, d.up(idx[rows]),
-            d.up(tsel[rows])))))
-    for rows in _chunks(np.nonzero(is_bbk)[0], bbk_bucket):
-        pend.append((rows, d.fetch(_decode_bbk_packed(
-            d.up(t5p[rows, :4]), ks_table, d.up(idx[rows])))))
-    d.wait()
-    for rows, r in pend:
-        out[rows] = r.numpy()
-    return out[:, :_T1_BYTES], out[:, _T1_BYTES].astype(bool)
-
-
-def decode_rows_mixed_packed(t5p: np.ndarray, blk_types: np.ndarray,
-                             scramb_idx: np.ndarray, ks_table: torch.Tensor,
-                             min_bucket: int = 0
-                             ) -> tuple[np.ndarray, np.ndarray]:
-    """Every row through the one mixed program (FleetEngine(
-    typed_fec=False)), in chunks of min_bucket rows (0: one chunk), every
-    chunk enqueued before any is fetched.  Arguments and result as
-    decode_rows_typed_packed's."""
-    N = len(blk_types)
-    tsel, idx = _packed_rows(blk_types, scramb_idx)
-    d = _Dispatch(ks_table.device)
-    out = np.empty((N, _T1_BYTES + 1), np.uint8)
-    pend = [(rows, d.fetch(_decode_mixed_packed(
-        d.up(t5p[rows]), ks_table, d.up(idx[rows]), d.up(tsel[rows]))))
-        for rows in _chunks(np.arange(N), min_bucket)]
-    d.wait()
-    for rows, r in pend:
-        out[rows] = r.numpy()
     return out[:, :_T1_BYTES], out[:, _T1_BYTES].astype(bool)

@@ -5,7 +5,7 @@ Per cycle, Python makes two ctypes calls plus one FEC pass, independent of
 the channel count:
 
     fleet_feed / fleet_feed_sb (C++)  demod symbols -> burst sync -> type-5 rows
-    decode_rows_*_packed (torch)      all rows' FEC on the engine's device
+    decode_rows_typed_packed (torch)  all rows' FEC on the engine's device
     fleet_dispatch (C++)              decoded rows -> per-channel MAC/display
 
 The C++ engine is the reference's own source (tetra_tpu/rx/native/
@@ -19,9 +19,10 @@ rows skip the FEC pass; the dispatch still sees them as voice slots.  With voice
 (voice/monitor.VoiceMonitor) decodes every voice row of a superblock,
 full slots and surviving halves, after the dispatch.
 
-The engine takes the reference's FEC choices (typed, split or mixed),
-bucket sizes, worker threads and link profile ("tunnel" or "pcie"); the
-buckets are chunk sizes here (rx/fec).
+Every batch, whatever its number of cells, takes the one FEC program
+(rx/fec.decode_rows_typed_packed) over a keystream table of the batch's
+scrambling codes; the link profile ("tunnel" or "pcie") sets only the
+engine's worker threads.
 """
 
 from __future__ import annotations
@@ -52,7 +53,6 @@ _lib = None
 _lock = threading.Lock()
 
 _T5P_BYTES, _T1P_BYTES, _META_COLS = 54, 34, 12
-_KS_SLOTS = 16
 
 # display flag order (Disp.flags in fleet.cpp)
 _DISP_FLAGS = ("advanced_link", "air_encryption", "sndcp_data",
@@ -136,13 +136,11 @@ class FleetEngine:
     the CPU)."""
 
     def __init__(self, channels: int, device=None, voice_cb=None,
-                 pad_rows: int = 0, cch_bucket: int = 0, bbk_bucket: int = 0,
-                 split_fec: bool = False, typed_fec: bool = True,
-                 short_bucket: int = 0, schf_bucket: int = 0,
                  threads: int | None = None, link_profile: str = "tunnel",
                  voice: bool = False, keystore: str | None = None):
         """The reference's signature, with device second (as the port's
-        callers pass it), and the voice monitor.
+        callers pass it), less its FEC program and bucket choices, and the
+        voice monitor.
 
         voice: decode every call's speech (voice/monitor.VoiceMonitor,
         drained with take_voice()), decrypted with the text keystore at
@@ -150,19 +148,9 @@ class FleetEngine:
 
         threads: worker threads of the native per-channel loops (channels
         are independent; ctypes releases the GIL).  None reads
-        TETRA_FLEET_THREADS; 0 picks by link profile: "tunnel" cores-1
+        TETRA_FLEET_THREADS; 0 picks by link_profile: "tunnel" cores-1
         (one core stays with the caller's device loop), "pcie" all cores;
-        1 is sequential.  Results do not depend on it.
-
-        FEC program, by precedence split > typed > mixed: split_fec=True
-        decodes CCH vs BBK rows at full width
-        (rx/fec.decode_rows_split_packed); typed_fec=True, the default, by
-        row type (decode_rows_typed_packed); else every row in the one
-        mixed program (decode_rows_mixed_packed, chunked by pad_rows).  The
-        buckets are those programs' chunk sizes; zero ones default as in
-        the reference, from pad_rows and the link profile: "tunnel" keeps
-        a steady batch in one chunk, "pcie" halves the typed buckets so it
-        runs as two, and chunk j's fetch overlaps chunk j+1's trellis."""
+        1 is sequential.  Results do not depend on it."""
         if link_profile not in ("tunnel", "pcie"):
             raise ValueError(f"link_profile={link_profile!r}: 'tunnel' or "
                              f"'pcie'")
@@ -181,26 +169,6 @@ class FleetEngine:
             cores = os.cpu_count() or 2
             threads = cores if link_profile == "pcie" else max(1, cores - 1)
         self.threads = threads
-        self.pad_rows = pad_rows
-        self.split_fec = split_fec
-        self.typed_fec = typed_fec and not split_fec
-        if split_fec:
-            cch_bucket = cch_bucket or pad_rows or 1024
-            bbk_bucket = bbk_bucket or max(512, pad_rows // 4)
-        self.cch_bucket = cch_bucket
-        self.bbk_bucket = bbk_bucket
-        if self.typed_fec:
-            # short rows are <= 2 a slot, SCH-F rows <= 1
-            if link_profile == "pcie":
-                short_bucket = short_bucket or max(256, (pad_rows or 1024)
-                                                   // 2)
-                schf_bucket = schf_bucket or max(128, (pad_rows or 1024)
-                                                 // 4)
-            else:
-                short_bucket = short_bucket or pad_rows or 1024
-                schf_bucket = schf_bucket or max(512, pad_rows // 2)
-        self.short_bucket = short_bucket
-        self.schf_bucket = schf_bucket
         y = np.ascontiguousarray(P.TRAIN_Y, np.uint8)
         n = np.ascontiguousarray(P.TRAIN_N, np.uint8)
         p = np.ascontiguousarray(P.TRAIN_P, np.uint8)
@@ -238,12 +206,9 @@ class FleetEngine:
         self.cell_cc = field(FleetChanStruct.cell_cc.offset)
         self._cap = 0
         self._t5 = self._meta = None
-        # keystream table on the FEC device: slot 0 = SCRAMB_INIT, the
-        # other slots assigned cycle-locally
-        self._ks_host = np.zeros((_KS_SLOTS, 432), np.uint8)
-        self._ks_host[0] = rx_fec.keystream(P.SCRAMB_INIT, 432)
-        self._ks_slot_scramb = np.full(_KS_SLOTS, -1, np.int64)
-        self._ks_slot_scramb[0] = P.SCRAMB_INIT
+        # keystream table on the FEC device: row 0 = SCRAMB_INIT, then the
+        # other codes of the last batch that brought a new one, ascending
+        self._ks_codes = np.zeros(0, np.int64)
         self._ks_dev = None
         self.voice = None
         if voice:
@@ -267,29 +232,18 @@ class FleetEngine:
                   | (np.asarray(valid, np.uint8) << 7))
         return self.process_packed(packed)
 
-    def _ks_cycle_map(self, scrambs: np.ndarray):
-        """Cycle-local scrambling-code -> keystream-table-slot map.  Returns
-        (slot per row, ok); ok is False when the cycle carries more than 15
-        distinct non-init codes (the caller then decodes unpacked)."""
-        uniq = [int(u) for u in np.unique(scrambs) if int(u) != P.SCRAMB_INIT]
-        if len(uniq) >= _KS_SLOTS:
-            return None, False
-        slot_of = {P.SCRAMB_INIT: 0}
-        dirty = False
-        for u in uniq:
-            slot = slot_of[u] = len(slot_of)
-            if self._ks_slot_scramb[slot] != u:
-                self._ks_host[slot] = rx_fec.keystream(u, 432)
-                self._ks_slot_scramb[slot] = u
-                dirty = True
-        if dirty or self._ks_dev is None:
-            self._ks_dev = torch.from_numpy(self._ks_host.copy()).to(
-                self.device)
-        keys = np.fromiter(slot_of.keys(), np.int64)
-        vals = np.fromiter(slot_of.values(), np.int32)
-        order = np.argsort(keys)
-        pos = np.searchsorted(keys[order], scrambs)
-        return vals[order][pos], True
+    def _ks_rows(self, scrambs: np.ndarray) -> np.ndarray:
+        """Each row's row of the keystream table, which is made and
+        uploaded again only when the batch brings a code it lacks."""
+        codes = np.unique(scrambs)
+        codes = codes[codes != P.SCRAMB_INIT]
+        if self._ks_dev is None or not np.isin(codes, self._ks_codes).all():
+            self._ks_codes = codes
+            self._ks_dev = torch.from_numpy(np.stack(
+                [rx_fec.keystream(int(u), 432)
+                 for u in (P.SCRAMB_INIT, *codes)])).to(self.device)
+        return np.where(scrambs == P.SCRAMB_INIT, 0,
+                        np.searchsorted(self._ks_codes, scrambs) + 1)
 
     def process_packed(self, packed: np.ndarray) -> int:
         """One feed cycle: (C, T) packed symbol bytes (bit 7 = valid, bits
@@ -354,36 +308,13 @@ class FleetEngine:
                                f"a buffer of {self._cap}")
 
     def _decode(self, rows_t5p, rows_types, rows_scrambs):
-        """One FEC pass over rows by the engine's program (split > typed >
-        mixed), as the reference's decode()."""
-        idx, ok = self._ks_cycle_map(rows_scrambs)
-        # the FEC pass (the keystream map above is the engine's own time)
+        """One FEC pass over rows (rx/fec.decode_rows_typed_packed)."""
+        idx = self._ks_rows(rows_scrambs)
+        # the FEC pass (the keystream table above is the engine's own time)
         with S.span("fec"):
             S.count("fec.rows", len(rows_types))
-            if ok:
-                if self.split_fec:
-                    return rx_fec.decode_rows_split_packed(
-                        rows_t5p, rows_types, idx, self._ks_dev,
-                        cch_bucket=self.cch_bucket,
-                        bbk_bucket=self.bbk_bucket)
-                if self.typed_fec:
-                    return rx_fec.decode_rows_typed_packed(
-                        rows_t5p, rows_types, idx, self._ks_dev,
-                        short_bucket=self.short_bucket,
-                        schf_bucket=self.schf_bucket,
-                        bbk_bucket=self.bbk_bucket or 512)
-                return rx_fec.decode_rows_mixed_packed(
-                    rows_t5p, rows_types, idx, self._ks_dev,
-                    min_bucket=self.pad_rows)
-            # > 15 distinct cells in one cycle: unpacked mixed decode
-            t5u = np.unpackbits(rows_t5p, axis=1)[:, :432]
-            t1u, oku = rx_fec.decode_rows_mixed(
-                t5u, rows_types, rows_scrambs, self.device,
-                min_bucket=self.pad_rows)
-            t1pad = np.concatenate(
-                [t1u, np.zeros((len(t1u), _T1P_BYTES * 8 - t1u.shape[1]),
-                               np.uint8)], axis=1)
-            return np.packbits(t1pad, axis=1), oku
+            return rx_fec.decode_rows_typed_packed(rows_t5p, rows_types, idx,
+                                                   self._ks_dev)
 
     def _speech_rows(self, meta: np.ndarray, chans: np.ndarray,
                      blk_types: np.ndarray) -> np.ndarray:
