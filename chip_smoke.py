@@ -176,7 +176,15 @@ Phases, each printing one line (any failure raises and exits non-zero):
    rows x 112 steps at one voice timeslot).  It prints rt_margin, the
    rows, halves and bad frames, and the kernel's row (`kernel:`, with
    its ms, plain_ms and bound), which the kernels line carries with its
-   launches.
+   launches.  The monitor's ACELP synthesis runs on the card
+   (csrc/acelp_synth.cu, launched once a timed superblock, a gate), so
+   the replayed PCM holds the kernel to the host codec; then the
+   kernel's own row, `acelp_synth`, at the voice cell's shape (12,720
+   items of 768 calls, three batches carried over): PCM against the host
+   codec's AcelpBank, max_abs_err 0 or the phase fails; the kernel's ms
+   (events), the card bank's whole call (call_ms: upload, launch, fetch
+   into pinned memory, copy out), the host bank's (plain_ms, on cores - 1
+   threads) and the bound of the longest call's serial chain.
 
 A line `timing:` before the kernel lines gives each phase's wall time
 (the profiler windows at the end included) and the total.
@@ -240,6 +248,7 @@ from tetra_tpu_torch import spans as SPANS
 from tetra_tpu_torch.apps.tetra_rx import load_iq
 from tetra_tpu_torch.crypto.state import CryptoState, KeyStore
 from tetra_tpu_torch.ops import _build
+from tetra_tpu_torch.ops import acelp_kernel as AK
 from tetra_tpu_torch.ops import chan_kernel as CK
 from tetra_tpu_torch.ops import demod_kernel as DK
 from tetra_tpu_torch.ops import fec_trellis as FT
@@ -262,7 +271,7 @@ from tetra_tpu_torch.tx.wideband import (MARGINAL_SNR_DB, _cell_config,
 from tetra_tpu_torch.voice import channel as VCH
 from tetra_tpu_torch.voice import monitor as VM
 from tetra_tpu_torch.voice import speech_batch as SB
-from tetra_tpu_torch.voice.acelp import AcelpDecoder
+from tetra_tpu_torch.voice.acelp import AcelpBank, AcelpDecoder
 from tetra_tpu_torch.voice.pipeline import VoicePipeline
 
 C_DEMOD, T_DEMOD = 256, 4608          # demod shapes of the main path
@@ -279,6 +288,11 @@ MIN_VOICE_SHARE = 0.8                 # voice slots decoded after warm-up
 MAX_BAD_SHARE = 0.02                  # bad frames among decoded slots
 FLEET_VOICE_SECONDS = 6.0             # air the fleet voice slice is fed
 REPLAY_CARRIERS = 16                  # carriers whose calls' PCM is replayed
+ACELP_ITEMS = 12_720        # the voice cell's synthesis items a superblock
+ACELP_BATCHES = 3           # batches the ACELP row holds to the host codec
+SYNTH_CHAIN_OPS = 4 * 60 * 10   # synthesis filter's dependent ops a frame
+FP32_LATENCY_CYCLES = 4     # an FP32 add's latency on Hopper
+SM_CLOCK_HZ = 1.98e9        # H100 SXM boost clock
 MODES_SECONDS = {"ff": 3.6, "exact": 2.0}   # air each mode's receiver is fed
 MODES_BLOCK = 4096                    # the CLI's --block
 TOL_MODES_CHANNELS = 0.99  # card vs CPU: share of identical dibits/valid
@@ -398,6 +412,7 @@ REPLACES = {
     "speech_trellis": "tetra_tpu/voice/channel.py:420",
     "fec_trellis": "none (tetra_tpu/rx/viterbi.py:99 _viterbi is an XLA "
                    "scan)",
+    "acelp_synth": "none (tetra_tpu/voice/acelp.py: the host C++ codec)",
 }
 SOURCES = {
     "K1 agc_fll_rrc": "tetra_tpu_torch/csrc/agc_fll_rrc.cu",
@@ -406,6 +421,7 @@ SOURCES = {
     "K4 fold_dft": "tetra_tpu_torch/csrc/chan.cu",
     "speech_trellis": "tetra_tpu_torch/csrc/speech_trellis.cu",
     "fec_trellis": "tetra_tpu_torch/csrc/fec_trellis.cu",
+    "acelp_synth": "tetra_tpu_torch/csrc/acelp_synth.cu",
 }
 
 
@@ -1717,6 +1733,7 @@ def phase_slice_voice_fleet(dev) -> tuple[dict, dict]:
         n_warm_blocks = len(blocks)
         torch.cuda.synchronize()
         trellis.launches = 0
+        acelp_launches = AK.synth.launches
         walls = []
         for s in range(warm, len(staged)):
             ts = time.perf_counter()
@@ -1724,14 +1741,17 @@ def phase_slice_voice_fleet(dev) -> tuple[dict, dict]:
             blocks += rx.take_voice()
             walls.append(time.perf_counter() - ts)
         launches = trellis.launches
+        acelp_launches = AK.synth.launches - acelp_launches
     finally:
         SB.speech_kernel = SK
     del staged
     timed = blocks[n_warm_blocks:]
     gates = fleet_gates(rx, ok0, fail0, "slice_voice_fleet")
-    check(len(timed) == len(walls) and launches == len(walls),
-          f"speech trellis launched {launches} times, {len(timed)} voice "
-          f"blocks, over {len(walls)} superblocks")
+    check(len(timed) == len(walls) and launches == len(walls)
+          and acelp_launches == len(walls),
+          f"speech trellis launched {launches} times, ACELP synthesis "
+          f"{acelp_launches}, {len(timed)} voice blocks, over {len(walls)} "
+          f"superblocks")
 
     # every delivered row against the air's plaintext, by its call's cell
     truth = [voice_truth(r, 0, len(r)) for r in records]
@@ -1810,8 +1830,72 @@ def phase_slice_voice_fleet(dev) -> tuple[dict, dict]:
                voice_rows=n_rows, halves=n_half, bad_frames=n_bad,
                carriers_with_voice=len(seen), missed=missed,
                pcm_rows_replayed=replayed, trellis_launches=launches,
-               trellis_rows=R_)
+               trellis_rows=R_, acelp_launches=acelp_launches)
     return out, row
+
+
+def acelp_batch(rng, keys: np.ndarray):
+    """One superblock's synthesis items at the voice cell's shape: the
+    calls `keys`, ACELP_ITEMS items spread over them as evenly as the
+    cell's (16-17 each, in a seeded interleaving, each call's in time
+    order), seeded frames, ~3% surviving halves, ~0.5% bad frames and no
+    item withheld (the cell's keys are all held).  Returns (calls, frames,
+    bfi, kind)."""
+    owner = np.arange(ACELP_ITEMS) % len(keys)
+    owner = owner[rng.permutation(ACELP_ITEMS)]
+    kind = (rng.random(ACELP_ITEMS) < 0.03).astype(np.int8)
+    frames = rng.integers(0, 2, (ACELP_ITEMS, 2, 137)).astype(np.uint8)
+    bfi = rng.random((ACELP_ITEMS, 2)) < 0.005
+    frames[kind == 1, 0] = 0
+    bfi[kind == 1, 0] = False
+    return keys[owner], frames, bfi, kind
+
+
+def acelp_synth_row(dev) -> dict:
+    """The ACELP synthesis kernel at the voice cell's shape (ACELP_ITEMS
+    items of 768 calls: 256 carriers x timeslots 2-4): ACELP_BATCHES
+    successive batches through AcelpCardBank and the host's AcelpBank
+    (on cores - 1 threads, as the monitor ran it), PCM equal to the
+    sample; then the kernel alone (ms, events), the card bank's whole
+    call (call_ms: upload, launch, fetch, copy out; host clock)
+    and the host bank's (plain_ms), and the bound: the longest call's
+    frames times the synthesis filter's dependent subtractions a frame at
+    FP32_LATENCY_CYCLES each, at SM_CLOCK_HZ."""
+    rng = np.random.default_rng(23)
+    keys = (np.arange(N_CH)[:, None] * 4 + np.arange(1, 4)).reshape(-1)
+    host = AcelpBank(threads=max(1, (os.cpu_count() or 2) - 1))
+    card = AK.AcelpCardBank(dev)
+    err = 0
+    for _ in range(ACELP_BATCHES):
+        batch = acelp_batch(rng, keys)
+        got, want = card.decode(*batch), host.decode(*batch)
+        err = max(err, int(np.abs(got.astype(np.int32) - want).max()))
+    check(err == 0, f"ACELP synthesis on the card differs from the host "
+          f"codec by {err} LSB")
+    calls, frames, bfi, kind = batch
+    order, seg, ks = AK.plan(calls)
+    args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (
+        frames, bfi.astype(np.uint8), kind, order, seg, ks)]
+    pcm = torch.empty((len(calls), AK.PCM), dtype=torch.int16, device=dev)
+    ms = median_ms(lambda: AK.synth(*args, card._pool, None, pcm), 5)
+
+    def wall_ms(bank, n):
+        times = []
+        for _ in range(n):
+            batch = acelp_batch(rng, keys)
+            t0 = time.perf_counter()
+            bank.decode(*batch)
+            times.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(times))
+    call_ms, plain_ms = wall_ms(card, 10), wall_ms(host, 3)
+    frames_longest = int((np.diff(seg) * 2).max())
+    bound_ms = (frames_longest * SYNTH_CHAIN_OPS * FP32_LATENCY_CYCLES
+                / SM_CLOCK_HZ * 1e3)
+    return dict(name="acelp_synth", calls=len(ks), items=len(calls),
+                max_abs_err=float(err), ms=ms, call_ms=call_ms,
+                plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by="serial chain", frames_longest_call=frames_longest,
+                bytes=int(frames.nbytes + bfi.nbytes + pcm.numel() * 2))
 
 
 def decode_slot_device_ops(dev) -> dict:
@@ -2978,13 +3062,18 @@ def main() -> None:
     marginal = phase_slice_marginal(dev)
     print(f"slice_marginal: gpu=[{gpu}] " + json.dumps(marginal), flush=True)
     lap("slice_marginal")
+    voice_launches = (SK.trellis.launches, AK.synth.launches)
     wide_res, wide_rows, wide_jobs, wide_profiles = phase_slice_wide(dev)
+    voice_launches_wide = {
+        "speech_trellis": SK.trellis.launches - voice_launches[0],
+        "acelp_synth": AK.synth.launches - voice_launches[1]}
     lap("slice_wide")
     voice = phase_slice_voice(dev, nf)
     lap("slice_voice")
     voice_fleet, speech_row = phase_slice_voice_fleet(dev)
     print(f"slice_voice_fleet: gpu=[{gpu}] " + json.dumps(voice_fleet),
           flush=True)
+    acelp_row = acelp_synth_row(dev)
     lap("slice_voice_fleet")
     modes, warm = phase_slice_modes(dev, wide)
     lap("slice_modes")
@@ -3005,6 +3094,7 @@ def main() -> None:
     for r in rows:
         print("kernel: " + json.dumps(r), flush=True)
     print("kernel: " + json.dumps(speech_row), flush=True)
+    print("kernel: " + json.dumps(acelp_row), flush=True)
     for r in fec_rows:
         print("kernel: " + json.dumps(r), flush=True)
     for r in wide_rows:
@@ -3030,10 +3120,16 @@ def main() -> None:
                      for r in wide_rows if r["name"] == k["name"]]
     n_sb = voice_fleet["superblocks"]
     line["kernels"] += kernel_line(
-        [speech_row], {speech_row["name"]: 0}, lambda r: dict(
+        [speech_row], voice_launches_wide, lambda r: dict(
             launches=voice_fleet["trellis_launches"],
             launches_per_superblock=voice_fleet["trellis_launches"] / n_sb,
             rows=r["rows"], steps=r["steps"]))["kernels"]
+    line["kernels"] += kernel_line(
+        [acelp_row], voice_launches_wide, lambda r: dict(
+            launches=voice_fleet["acelp_launches"],
+            launches_per_superblock=voice_fleet["acelp_launches"] / n_sb,
+            calls=r["calls"], items=r["items"],
+            call_ms=r["call_ms"]))["kernels"]
     # launches_wide: not counted (slice_wide's receivers launch it too)
     line["kernels"] += kernel_line(
         fec_rows, {"fec_trellis": None}, lambda r: dict(

@@ -523,3 +523,82 @@ def test_fec_trellis_kernel_matches_plain(dev, code, T, R, term):
     assert FT.trellis.launches == launches + 1
     assert got.shape == (R, T) and got.dtype == torch.uint8
     assert torch.equal(got, V._viterbi(x, code == "tch", term == "truncate"))
+
+
+@pytest.mark.parametrize("tables", ["parametric", "loaded"])
+def test_acelp_synth_kernel_matches_host_bank(dev, tmp_path, tables):
+    """AcelpCardBank (one acelp_synth launch a batch, the decoders kept on
+    the card) against the host codec's AcelpBank, bit for bit: 70 calls
+    of unequal lengths with keys up to 3,000 (the pool grows), halves,
+    bad frames, withheld items (a call that opens with them, a call
+    withheld through the first batch), three successive batches, with
+    the codec's parametric quantizers and with random loaded tables;
+    voice.acelp_rows counts each batch's items not withheld."""
+    from acelp_batches import batches, random_tables
+    from tetra_tpu_torch import spans as S
+    from tetra_tpu_torch.ops import acelp_kernel as AK
+    from tetra_tpu_torch.voice import acelp as TA
+    if tables == "loaded":
+        path = tmp_path / "tables.npz"
+        np.savez(path, **random_tables(4))
+        TA.load_codec_tables(str(path))
+    try:
+        host, card = TA.AcelpBank(threads=2), AK.AcelpCardBank(dev)
+        for calls, frames, bfi, kind in batches(11, key_span=3000):
+            launches = AK.synth.launches
+            S.clear()
+            got = card.decode(calls, frames, bfi, kind)
+            S.close_superblock()
+            assert AK.synth.launches == launches + 1
+            assert S.records()["voice.acelp_rows"][-1] == (kind != 2).sum()
+            want = host.decode(calls, frames, bfi, kind)
+            assert np.array_equal(got, want), \
+                f"{int((got != want).any(axis=1).sum())} of {len(calls)} " \
+                f"items differ"
+        made = card._pool.cpu().view(torch.int32)[:, -1]
+        assert int(made.sum()) == len(host)
+    finally:
+        if tables == "loaded":
+            TA.clear_codec_tables()
+
+
+def test_fleet_voice_pcm_on_card_matches_host_bank(dev, tmp_path):
+    """The fleet receiver's voice monitor on the card (16 carriers of
+    voice_cell_air: voice on timeslot 2, steals of both kinds, TEA1 on
+    cells 4-7 with the keys held): each superblock's take_voice() PCM
+    equals a host AcelpBank fed the same rows in the same batches, and
+    the card's synthesis launched once a superblock that had voice."""
+    from tetra_tpu_torch import spans as S
+    from tetra_tpu_torch.ops import acelp_kernel as AK
+    from tetra_tpu_torch.rx.receiver import TetraReceiver
+    from tetra_tpu_torch.tx.wideband import cell_keystore, voice_cell_air
+    from tetra_tpu_torch.voice import acelp as TA
+    from tetra_tpu_torch.voice import monitor as VM
+
+    keys = tmp_path / "keys.txt"
+    keys.write_text(cell_keystore((4, 5, 6, 7)))
+    wide, _ = voice_cell_air(16, 5.0, 8, keystore=str(keys),
+                             encrypted=(4, 5, 6, 7))
+    rx = TetraReceiver(wideband=16, fleet=True, wb_k=8, device=dev,
+                       voice=True, keystore=str(keys))
+    assert isinstance(rx.fleet.voice.bank, AK.AcelpCardBank)
+    host = TA.AcelpBank(threads=2)
+    S.clear()
+    launches = AK.synth.launches
+    adv = rx._wb["advance"]
+    blocks = []
+    for at in range(0, len(wide) - adv + 1, adv):
+        rx.process_wideband(wide[at:at + adv])
+        blocks += rx.take_voice()
+    rows = withheld = 0
+    for b in blocks:
+        kind = np.where(b.crypt == VM.WITHHELD, 2, b.kind).astype(np.int8)
+        want = host.decode(b.carrier * 4 + (b.timeslot - 1) % 4, b.frames,
+                           b.bfi, kind)
+        assert np.array_equal(b.pcm, want)
+        rows += len(b)
+        withheld += int((kind == 2).sum())
+    assert rows > 200 and (np.concatenate([b.kind for b in blocks])
+                           == VM.HALF).any()
+    assert AK.synth.launches - launches == sum(len(b) > 0 for b in blocks)
+    assert S.records()["voice.acelp_rows"].sum() == rows - withheld

@@ -86,10 +86,13 @@ def _declare(lib) -> None:
     lib.launch_speech_trellis.argtypes = [P] * 4 + [I] * 2 + [P]
     # x, signs (host), bits | R, T, nb, truncate | stream
     lib.launch_fec_trellis.argtypes = [P] * 3 + [I] * 4 + [P]
+    # frames, bfi, kind, order, seg, keys | n_calls | pool, tables, pcm |
+    # state_bytes, table_bytes | stream
+    lib.launch_acelp_synth.argtypes = [P] * 6 + [I] + [P] * 3 + [I] * 2 + [P]
     for name in ("launch_agc_fll_rrc", "launch_mm_costas",
                  "launch_fold_dft", "launch_resample",
                  "launch_fold_dft_resample", "launch_speech_trellis",
-                 "launch_fec_trellis"):
+                 "launch_fec_trellis", "launch_acelp_synth"):
         getattr(lib, name).restype = ctypes.c_int
 
 

@@ -50,7 +50,9 @@ Spans (parent in brackets):
                                 its one wait
           voice.decrypt [voice] the cipher state, the TEA1 keystreams and
                                 their XOR onto the codec frames
-          voice.acelp   [voice] the batched ACELP synthesis
+          voice.acelp   [voice] the batched ACELP synthesis: on a CUDA
+                                device its upload, one kernel launch
+                                and its fetch
 
 Counters: fec.rows (rows handed to the card's FEC), fec.trellis_rows
 (rows the trellis kernel decoded, counted where rx/viterbi.viterbi_decode
@@ -62,8 +64,9 @@ and each write's copy into pinned staging, or into the ring itself on a
 CPU device), ingest.bytes_uploaded (bytes written into the ring from
 host memory), and the voice monitor's voice.slots (full traffic slots
 decoded), voice.halves (surviving halves of first-half steals decoded),
-voice.bad_frames (codec frames flagged bad) and voice.frames_decrypted
-(codec frames TEA1-decrypted).
+voice.bad_frames (codec frames flagged bad), voice.frames_decrypted
+(codec frames TEA1-decrypted) and voice.acelp_rows (rows the ACELP kernel
+synthesised, withheld rows not counted; 0 on a CPU device).
 """
 
 from __future__ import annotations
@@ -82,7 +85,7 @@ PROFILED = ("frontend", "demod")
 COUNTERS = ("fec.rows", "hunt.bits", "ingest.bytes_fed",
             "ingest.bytes_copied", "ingest.bytes_uploaded", "voice.slots",
             "voice.halves", "voice.bad_frames", "voice.frames_decrypted",
-            "fec.trellis_rows")
+            "fec.trellis_rows", "voice.acelp_rows")
 RING_ROWS = 16384
 
 _HEAD = ("seq", "start_ns", "end_ns")

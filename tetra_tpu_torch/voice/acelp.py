@@ -31,6 +31,11 @@ _SRC_BATCH = os.path.join(_HOST, "acelp_batch.cpp")
 
 _lib = None
 _lock = threading.Lock()
+# the tables load_codec_tables last loaded into the codec (None: its
+# parametric quantizers), and a count of loads and clears; the card's
+# synthesis (ops/acelp_kernel) reads both
+_tables = None
+_tables_version = 0
 
 FRAME_BITS = 137
 FRAME_SAMPLES = 240
@@ -122,11 +127,29 @@ def load_codec_tables(path: str) -> None:
         ctypes.c_float(pred))
     if rc != 0:
         raise ValueError(f"codec table shapes rejected (rc={rc})")
+    _set_tables((cb1, cb2, cb3, gcb, np.float32(pred)))
 
 
 def clear_codec_tables() -> None:
     """Revert the native codec to its built-in parametric quantizers."""
     _load().tetra_acelp_clear_tables()
+    _set_tables(None)
+
+
+def _set_tables(tables) -> None:
+    global _tables, _tables_version
+    with _lock:
+        _tables = tables
+        _tables_version += 1
+
+
+def codec_tables():
+    """(version, tables): the count of loads and clears so far, and the
+    tables the codec holds, (cb1, cb2, cb3, gain_cb, lsf_pred) as
+    load_codec_tables loaded them, or None for its parametric
+    quantizers."""
+    with _lock:
+        return _tables_version, _tables
 
 
 class AcelpDecoder:
@@ -160,6 +183,18 @@ class AcelpDecoder:
         frames = np.asarray(frames, np.uint8).reshape(2, FRAME_BITS)
         return np.concatenate([self.decode_frame(frames[0], bfi),
                                self.decode_frame(frames[1], bfi)])
+
+
+def plan_calls(calls: np.ndarray):
+    """(order, seg, keys) int64 of a batch whose item i belongs to call
+    calls[i], items of a call in time order: the calls in ascending keys,
+    call c's items order[seg[c]:seg[c + 1]] in their order."""
+    calls = np.asarray(calls, np.int64)
+    order = np.argsort(calls, kind="stable")
+    ordered = calls[order]
+    starts = np.flatnonzero(np.r_[True, ordered[1:] != ordered[:-1]]) \
+        if len(calls) else np.zeros(0, np.int64)
+    return order, np.append(starts, len(calls)), ordered[starts]
 
 
 class AcelpBank:
@@ -196,9 +231,7 @@ class AcelpBank:
         out = np.empty((n, 2 * FRAME_SAMPLES), np.int16)
         if n == 0:
             return out
-        order = np.argsort(calls, kind="stable")
-        keys, starts = np.unique(calls[order], return_index=True)
-        seg = np.append(starts, n).astype(np.int64)
+        order, seg, keys = plan_calls(calls)
         live = np.zeros(len(keys), bool)
         np.logical_or.at(live, np.searchsorted(keys, calls), kind != 2)
         handles = np.zeros(len(keys), np.uint64)
@@ -210,7 +243,6 @@ class AcelpBank:
         frames = np.ascontiguousarray(frames, np.uint8)
         bfi = np.ascontiguousarray(bfi, np.uint8)
         assert frames.shape == (n, 2, FRAME_BITS) and bfi.shape == (n, 2)
-        order = np.ascontiguousarray(order, np.int64)
         self._lib.tetra_acelp_decode_batch(
             handles.ctypes.data, len(keys), seg.ctypes.data,
             order.ctypes.data, frames.ctypes.data, bfi.ctypes.data,

@@ -17,9 +17,11 @@ the surviving second half of each first-half steal) come here together:
    in one C++ call (crypto/tea_batch.py); they are XORed off the codec
    frames: keystream bits 0-273 over a full slot's two frames, bits
    137-273 over a half's surviving frame;
-3. synthesise: one C++ call decodes every row to 480 samples of 8 kHz
-   PCM on its call's own ACELP decoder (voice/acelp.AcelpBank), made on
-   the call's first synthesised slot.
+3. synthesise: every row to 480 samples of 8 kHz PCM on its call's own
+   ACELP decoder, made on the call's first synthesised slot: on a CUDA
+   device one kernel launch a superblock with the decoders kept on the
+   card (ops/acelp_kernel.AcelpCardBank), on the CPU one C++ call
+   (voice/acelp.AcelpBank), bit for bit alike.
 
 A carrier's voice is taken from its first good SYNC PDU on, which sets
 its slots' times (and so the timeslot of each call).  A carrier whose
@@ -54,6 +56,7 @@ from .. import params as P
 from .. import spans as S
 from ..crypto import state as cstate
 from ..crypto import tea_batch
+from ..ops.acelp_kernel import AcelpCardBank
 from ..rx import fec as rx_fec
 from .acelp import FRAME_BITS, AcelpBank
 from .speech_batch import decode_speech
@@ -106,7 +109,7 @@ def _bits(t1p: np.ndarray, pos: int, n: int) -> np.ndarray:
 class VoiceMonitor:
     """Voice for a FleetEngine of `channels` carriers on `device`, with the
     keystore at `keystore` (None: every carrier is clear); `threads`
-    workers for the keystreams and the synthesis."""
+    workers for the keystreams, and on a CPU device for the synthesis."""
 
     def __init__(self, channels: int, device, keystore: str | None = None,
                  threads: int = 1):
@@ -115,7 +118,9 @@ class VoiceMonitor:
         self.threads = max(1, int(threads))
         self.store = (cstate.KeyStore.load(keystore) if keystore
                       else cstate.KeyStore())
-        self.bank = AcelpBank(self.threads)
+        self.bank = (AcelpCardBank(device)
+                     if torch.device(device).type == "cuda"
+                     else AcelpBank(self.threads))
         self.ring = collections.deque(maxlen=RING_BLOCKS)
         self.dropped = 0            # blocks the full ring dropped
         # each carrier's descrambling sequence on the device, and its code
